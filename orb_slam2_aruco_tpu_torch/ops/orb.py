@@ -1,0 +1,204 @@
+"""Oriented BRIEF (ORB): IC angle + steered 256-bit descriptors, plus K2.
+
+Port of orb_slam2_aruco_tpu/ops/orb.py (reference ORBextractor IC_Angle,
+src/ORBextractor.cc:77-104, and computeOrbDescriptor, :108-147). The seeded
+sampling pattern and the separable steering tables are generated with the
+same numpy calls, so they are bit-identical to the JAX package's.
+
+Patch extraction is `extract_patches`, which replaces the TPU kernel
+ops/pallas_patches.py::extract_patches_pallas: `extract_patches_cuda`
+launches the hand-written kernel (kernels/csrc/patches.cu) on a CUDA tensor,
+`extract_patches_torch` is the plain gather for CPU tensors.
+
+Packed descriptors are carried as int32 holding the uint32 bits of the JAX
+package (torch lacks most bitwise ops on uint32); right shifts are masked.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from orb_slam2_aruco_tpu_torch import kernels
+
+PATCH_RADIUS = 15
+NUM_BITS = 256
+_PATTERN_SEED = 20260817
+ANGLE_BINS = 32
+_PATCH = 32
+_PATCH_C = 16.0
+
+
+@lru_cache(maxsize=1)
+def brief_pattern() -> np.ndarray:
+    """[256, 4] float32 (x1, y1, x2, y2) offsets, norm <= 13."""
+    rng = np.random.default_rng(_PATTERN_SEED)
+    sigma = (2 * PATCH_RADIUS + 1) / 5.0
+    pts = rng.normal(0.0, sigma, size=(NUM_BITS, 4)).astype(np.float32)
+    for cols in ((0, 1), (2, 3)):
+        v = pts[:, cols]
+        n = np.linalg.norm(v, axis=1, keepdims=True)
+        scale = np.minimum(1.0, (PATCH_RADIUS - 2.0) / np.maximum(n, 1e-6))
+        pts[:, cols] = v * scale
+    return np.round(pts).astype(np.float32)
+
+
+@lru_cache(maxsize=1)
+def _moment_kernels_patch32():
+    """IC-angle moment weights over a flattened 32x32 patch (keypoint at
+    (16, 16), circular radius 15)."""
+    y, x = np.mgrid[0:32, 0:32]
+    dx = (x - 16).astype(np.float32)
+    dy = (y - 16).astype(np.float32)
+    circ = (dx * dx + dy * dy <= 15 * 15).astype(np.float32)
+    return ((dx * circ).reshape(-1).astype(np.float32),
+            (dy * circ).reshape(-1).astype(np.float32))
+
+
+@lru_cache(maxsize=1)
+def _steered_sep_tables():
+    """([B, 512, 32], [B, 512, 32]) row/column bilinear tap tables per angle
+    bin (see the JAX module for the derivation)."""
+    pat = brief_pattern()
+    pts = np.concatenate([pat[:, :2], pat[:, 2:]], axis=0)
+    Wy = np.zeros((ANGLE_BINS, 512, _PATCH), np.float32)
+    Wx = np.zeros((ANGLE_BINS, 512, _PATCH), np.float32)
+    for b in range(ANGLE_BINS):
+        th = 2.0 * np.pi * b / ANGLE_BINS
+        c, s = np.cos(th), np.sin(th)
+        rx = pts[:, 0] * c - pts[:, 1] * s + _PATCH_C
+        ry = pts[:, 0] * s + pts[:, 1] * c + _PATCH_C
+        x0 = np.clip(np.floor(rx).astype(int), 0, _PATCH - 2)
+        y0 = np.clip(np.floor(ry).astype(int), 0, _PATCH - 2)
+        fx = np.clip(rx - x0, 0.0, 1.0)
+        fy = np.clip(ry - y0, 0.0, 1.0)
+        k = np.arange(512)
+        Wx[b, k, x0] = 1.0 - fx
+        Wx[b, k, x0 + 1] = fx
+        Wy[b, k, y0] = 1.0 - fy
+        Wy[b, k, y0 + 1] = fy
+    return Wy, Wx
+
+
+_device_tables = {}
+
+
+def _tables_on(device):
+    """The steering tables rounded to bf16 (as the reference feeds them to
+    the MXU), held in float32 on `device`."""
+    key = str(device)
+    if key not in _device_tables:
+        Wy, Wx = _steered_sep_tables()
+        kx, ky = _moment_kernels_patch32()
+        as_bf16 = lambda a: torch.as_tensor(a).to(torch.bfloat16).float()  # noqa
+        _device_tables[key] = tuple(
+            t.to(device) for t in (as_bf16(Wy), as_bf16(Wx),
+                                   torch.as_tensor(kx), torch.as_tensor(ky)))
+    return _device_tables[key]
+
+
+def extract_patches_torch(img, y0, x0, patch: int = _PATCH):
+    """[N, patch, patch] windows of img [H, W] at top-left corners (y0, x0)
+    [N] int32, clamped into the image as dynamic_slice clamps them."""
+    H, W = img.shape
+    y0 = torch.clamp(y0.long(), 0, H - patch)
+    x0 = torch.clamp(x0.long(), 0, W - patch)
+    r = torch.arange(patch, device=img.device)
+    rows = (y0[:, None, None] + r[None, :, None])
+    cols = (x0[:, None, None] + r[None, None, :])
+    return img[rows, cols]
+
+
+def extract_patches_cuda(img, y0, x0, patch: int = _PATCH):
+    """Launch kernel K2 (kernels/csrc/patches.cu) on CUDA tensors."""
+    if not (img.is_cuda and img.dtype == torch.float32 and img.dim() == 2):
+        raise ValueError("extract_patches_cuda takes a CUDA float32 [H, W]")
+    if not (y0.is_cuda and x0.is_cuda) or y0.shape != x0.shape:
+        raise ValueError("extract_patches_cuda takes CUDA y0, x0 of one "
+                         "shape [N]")
+    H, W = img.shape
+    if H < patch or W < patch:
+        raise ValueError(f"image {H}x{W} smaller than the {patch}px patch")
+    img = img.contiguous()
+    y0 = y0.to(torch.int32).contiguous()
+    x0 = x0.to(torch.int32).contiguous()
+    n = y0.shape[0]
+    out = torch.empty((n, patch, patch), dtype=torch.float32,
+                      device=img.device)
+    err = kernels.build.launcher("patches")(
+        img.data_ptr(), y0.data_ptr(), x0.data_ptr(), out.data_ptr(), n, H,
+        W, patch, torch.cuda.current_stream(img.device).cuda_stream)
+    kernels.check_launch("patches", err)
+    return out
+
+
+def patch_corners(img_shape, xy, patch: int = _PATCH):
+    """Top-left corners (y0, x0) of the patches centred at keypoints xy."""
+    h, w = img_shape
+    x0 = torch.clamp(torch.round(xy[:, 0]).to(torch.int32) - patch // 2,
+                     0, w - patch)
+    y0 = torch.clamp(torch.round(xy[:, 1]).to(torch.int32) - patch // 2,
+                     0, h - patch)
+    return y0, x0
+
+
+def extract_patches(img, xy, patch: int = _PATCH):
+    """[N, patch, patch] patches with top-left at kp - patch/2: K2 on a CUDA
+    tensor, its plain version on a CPU tensor."""
+    y0, x0 = patch_corners(img.shape, xy, patch)
+    if img.is_cuda:
+        return extract_patches_cuda(img, y0, x0, patch)
+    return extract_patches_torch(img, y0, x0, patch)
+
+
+def angles_from_patches(patches):
+    """IC angle from [N, 32, 32] patches (two float32 matvecs)."""
+    _, _, kx, ky = _tables_on(patches.device)
+    flat = patches.reshape(patches.shape[0], -1)
+    return torch.atan2(flat @ ky, flat @ kx)
+
+
+def describe_patches(patches, angles):
+    """Steered BRIEF from [N, 32, 32] patches -> packed [N, 8] int32.
+
+    The reference contracts bf16 patches with bf16 tap tables into float32
+    sums. Every product of two bf16 values is exact in float32 and each row
+    holds two non-zero taps, so float32 matmuls on the bf16-rounded operands
+    give the reference's sums."""
+    Wy_all, Wx_all, _, _ = _tables_on(patches.device)
+    bins = torch.remainder(
+        torch.round(angles * (ANGLE_BINS / (2.0 * np.pi))).to(torch.int32),
+        ANGLE_BINS).long()
+    Wy = Wy_all[bins]                                  # [N, 512, 32]
+    Wx = Wx_all[bins]
+    pb = patches.to(torch.bfloat16).float()
+    tmp = torch.bmm(Wy, pb)                            # [N, 512, 32]
+    sel = torch.sum(tmp * Wx, dim=-1)                  # [N, 512]
+    bits = (sel[:, :256] < sel[:, 256:]).to(torch.int32)
+    return pack_bits(bits)
+
+
+_SHIFTS = torch.arange(32, dtype=torch.int64)
+
+
+def pack_bits(bits):
+    """[N, 256] {0,1} -> [N, 8] int32 (the uint32 bit pattern)."""
+    n = bits.shape[0]
+    b = bits.reshape(n, 8, 32).to(torch.int64)
+    w = torch.sum(b << _SHIFTS.to(bits.device), dim=-1)
+    return (w - ((w >> 31) << 32)).to(torch.int32)     # wrap into int32
+
+
+def unpack_bits(packed):
+    """[N, 8] int32 -> [N, 256] float32 in {0, 1}."""
+    n = packed.shape[0]
+    p = packed.to(torch.int64) & 0xFFFFFFFF
+    b = (p[:, :, None] >> _SHIFTS.to(packed.device)) & 1
+    return b.reshape(n, 256).to(torch.float32)
+
+
+def unpack_pm1(packed):
+    """[N, 8] int32 -> [N, 256] float32 in {-1, +1}."""
+    return unpack_bits(packed) * 2.0 - 1.0

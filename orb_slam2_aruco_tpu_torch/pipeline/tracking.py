@@ -1,0 +1,408 @@
+"""Tracking: per-frame pose estimation with the marker-first cascade.
+
+Port of orb_slam2_aruco_tpu/pipeline/tracking.py, the functions the
+localization slice runs (reference Tracking::Track, src/Tracking.cc:192-492):
+
+  * CheckArucoID (Tracking.cc:856-908)          -> bind_markers,
+                                                   old_marker_flags
+  * IsArucoWellTrack (Tracking.cc:1062-1168)    -> aruco_pose_candidate
+  * TrackWithMotionModel (Tracking.cc:995-1060) -> track_frame
+  * TrackReferenceKeyFrame (Tracking.cc:910-982)-> track_vs_keyframe
+  * TrackLocalMap (Tracking.cc:1242-1293)       -> track_local_map
+  * the whole OK-state cascade                  -> track_full
+
+Every function runs eagerly on the state's device with fixed shapes. The
+JAX package's two `lax.cond`s in `_cascade_seed` (widened-window retry and
+reference-keyframe fallback) are host branches here: each reads one
+scalar (`host_sync`), counted in `SYNCS` so a run can report its host syncs
+per frame.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from orb_slam2_aruco_tpu_torch.config import SlamConfig
+from orb_slam2_aruco_tpu_torch.geometry import camera as cam_mod
+from orb_slam2_aruco_tpu_torch.geometry.camera import Camera
+from orb_slam2_aruco_tpu_torch.geometry.lie import (
+    se3_apply,
+    se3_inverse,
+)
+from orb_slam2_aruco_tpu_torch.ops import matching
+from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
+from orb_slam2_aruco_tpu_torch.optim import pose_opt
+from orb_slam2_aruco_tpu_torch.optim.residuals import (
+    marker_corner_points_world,
+)
+from orb_slam2_aruco_tpu_torch.pipeline.frontend import Frame, scale_sigma2
+from orb_slam2_aruco_tpu_torch.worldmap.state import MapState
+
+SYNCS = {"count": 0}
+
+
+def host_sync(x) -> bool:
+    """Read a 0-d tensor's truth value on the host (a device sync on
+    CUDA), counted in SYNCS."""
+    SYNCS["count"] += 1
+    return bool(x)
+
+
+class TrackResult(NamedTuple):
+    Rcw: torch.Tensor
+    tcw: torch.Tensor
+    obs_point: torch.Tensor   # [N] map-point slot per current feature
+    n_inliers: torch.Tensor   # []
+    n_matches: torch.Tensor   # [] pre-optimization matches
+
+
+class FullTrackResult(NamedTuple):
+    Rcw: torch.Tensor
+    tcw: torch.Tensor
+    obs_point: torch.Tensor
+    n_inliers: torch.Tensor       # final (local-map) inliers
+    n_first_stage: torch.Tensor   # inliers after the first-stage track
+    used_aruco: torch.Tensor      # bool
+    used_ref_kf: torch.Tensor     # bool
+    slots: torch.Tensor           # [A] marker binding
+    old_flags: torch.Tensor       # [A]
+    any_new_marker: torch.Tensor  # bool
+    pt_visible: torch.Tensor
+    pt_found: torch.Tensor
+    ctrl: torch.Tensor            # [20] float32, layout of the JAX package:
+                                  # [n_inl, n_first, aruco, refkf, new_mk,
+                                  #  Rcw(9), tcw(3), n_ref3, n_ref2, ref_kf]
+
+
+def _scatter_max(N: int, tgt, src):
+    """out[tgt[i]] = max(out, src[i]) over a [N + 1] buffer of -1 (index N
+    collects the invalid entries), returned cropped to [N]."""
+    buf = torch.full((N + 1,), -1, dtype=torch.int64, device=src.device)
+    return buf.scatter_reduce(0, tgt, src, "amax", include_self=True)[:N]
+
+
+def _mark(L: int, idx):
+    """[L] bool: True at every index idx >= 0 (entries < 0 are dropped)."""
+    buf = torch.zeros((L + 1,), dtype=torch.bool, device=idx.device)
+    buf[torch.where(idx >= 0, idx, L)] = True
+    return buf[:L]
+
+
+# ---------------------------------------------------------------------------
+# markers
+# ---------------------------------------------------------------------------
+
+
+def bind_markers(state: MapState, frame: Frame):
+    """[A] map marker slot for each frame marker id (-1 if not in map)."""
+    ids = frame.mk_ids
+    eq = ((ids[:, None] == state.mk_id[None, :]) & state.mk_valid[None, :]
+          & (ids[:, None] >= 0))
+    slot = torch.argmax(eq.to(torch.int32), dim=1)
+    return torch.where(eq.any(dim=1), slot, -1)
+
+
+def old_marker_flags(state: MapState, slots, min_gap: int):
+    """[A] bool: bound markers whose latest observing keyframe is at least
+    `min_gap` keyframes old (mvbOldAruco, Tracking.cc:856-908)."""
+    slots_safe = torch.clamp(slots, min=0)
+    observes = ((state.kf_mk_slot[:, :, None] == slots_safe[None, None, :])
+                & state.kf_mk_valid[:, :, None]
+                & state.kf_valid[:, None, None]).any(dim=1)      # [K, A]
+    fid = torch.where(state.kf_valid, state.kf_frame_id, -1)
+    latest_fid = torch.where(observes, fid[:, None], -1).max(dim=0).values
+    rank = ((fid[:, None] > fid[None, :])
+            & state.kf_valid[None, :]).sum(dim=1)
+    newest_rank = torch.where(state.kf_valid, rank, -1).max()
+    latest_rank = torch.where(observes, rank[:, None], -1).max(dim=0).values
+    gap = newest_rank - latest_rank
+    return (slots >= 0) & (latest_fid >= 0) & (gap >= min_gap)
+
+
+def marker_observer_kf(state: MapState, slots):
+    """Most recent valid keyframe observing any bound marker slot, or -1."""
+    eq = ((state.kf_mk_slot[:, :, None] == torch.clamp(slots, min=0)[None, None, :])
+          & state.kf_mk_valid[:, :, None]
+          & (slots >= 0)[None, None, :]).any(dim=2).any(dim=1)
+    observes = eq & state.kf_valid
+    fid = torch.where(observes, state.kf_frame_id, -1)
+    k = torch.argmax(fid)
+    return torch.where(observes.any(), k, -1)
+
+
+def _marker_obs_arrays(state: MapState, frame: Frame, slots, old=None):
+    """Fixed-marker edge inputs: corners_w [A, 4, 3], uv [A, 4, 2] and the
+    mask of good, bound, non-old markers (Optimizer.cc:628-676)."""
+    slots_safe = torch.clamp(slots, min=0)
+    corners_w = marker_corner_points_world(
+        state.mk_Rwm[slots_safe], state.mk_twm[slots_safe],
+        state.mk_side[slots_safe])
+    mask = (slots >= 0) & frame.mk_good & frame.mk_valid
+    if old is not None:
+        mask = mask & ~old
+    return corners_w, frame.mk_corners, mask
+
+
+def aruco_pose_candidate(state: MapState, frame: Frame, slots, cam: Camera,
+                         cfg: SlamConfig, old=None, err_th=None):
+    """Best camera pose implied by one bound marker, scored by the mean
+    corner reprojection error over all bound markers. Returns (ok, Rcw,
+    tcw, mean_err) as tensors."""
+    slots_safe = torch.clamp(slots, min=0)
+    Rmw, tmw = se3_inverse(state.mk_Rwm[slots_safe], state.mk_twm[slots_safe])
+    Rc = frame.mk_Rcm @ Rmw                                     # [A, 3, 3]
+    tc = (frame.mk_Rcm @ tmw[..., None])[..., 0] + frame.mk_tcm
+    cand_ok = (slots >= 0) & frame.mk_good & frame.mk_valid
+    if old is not None:
+        cand_ok = cand_ok & ~old
+    corners_w, uv_obs, mask = _marker_obs_arrays(state, frame, slots, old)
+    cw_flat = corners_w.reshape(-1, 3)                          # [4A, 3]
+    uv_flat = uv_obs.reshape(-1, 2)
+    m_flat = mask.to(torch.float32).repeat_interleave(4)
+    p = cw_flat[None] @ Rc.transpose(-1, -2) + tc[:, None, :]   # [A, 4A, 3]
+    uv = cam_mod.project(cam, p)
+    err = torch.linalg.norm(uv - uv_flat[None], dim=-1)
+    err = torch.where(p[..., 2] > 0.02, err, 1e6)
+    wsum = torch.clamp(m_flat.sum(), min=1.0)
+    errs = (err * m_flat[None]).sum(dim=-1) / wsum              # [A]
+    errs = torch.where(cand_ok, errs, 1e9)
+    best = torch.argmin(errs)
+    th = cfg.aruco.well_tracked_reproj_err if err_th is None else err_th
+    return errs[best] < th, Rc[best], tc[best], errs[best]
+
+
+# ---------------------------------------------------------------------------
+# point matching + pose refinement
+# ---------------------------------------------------------------------------
+
+
+def _point_world_arrays(state: MapState, obs_point):
+    safe = torch.clamp(obs_point, min=0)
+    return state.pt_xyz[safe], (obs_point >= 0) & state.pt_valid[safe]
+
+
+def local_point_mask(state: MapState, obs_point, max_local_kfs: int):
+    """([L] bool, best_kf): points observed by the covisibility-local
+    keyframes (UpdateLocalKeyFrames <= 80, Tracking.cc:1555-1663) and the
+    keyframe sharing the most points with the frame (-1 if none)."""
+    K, L = state.K, state.L
+    obs_set = _mark(L, obs_point)
+    inc = state.pt_obs_kf & state.kf_valid[None, :]
+    share = (obs_set.to(torch.float32) @ inc.to(torch.float32)).to(torch.int64)
+    kth = stable_topk(share, min(max_local_kfs, K))[0][-1]
+    local_kf = (share > 0) & (share >= kth) & state.kf_valid
+    mask = (inc & local_kf[None, :]).any(dim=1)
+    any_local = local_kf.any()
+    best_kf = torch.where(any_local, torch.argmax(share), -1)
+    return torch.where(any_local, mask, torch.ones_like(mask)), best_kf
+
+
+def _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
+              cfg: SlamConfig, old=None, rounds=None, iters_per_round=None):
+    pts, pvalid = _point_world_arrays(state, obs_point)
+    inv_s2 = scale_sigma2(cfg.orb.num_levels, cfg.orb.scale_factor,
+                          pts.device)[frame.kp_octave]
+    corners_w, uv_mk, m_mask = _marker_obs_arrays(state, frame, slots, old)
+    r = pose_opt.optimize_pose(
+        Rcw0, tcw0, cam, pts, frame.kp_uv, pvalid & frame.kp_valid, inv_s2,
+        marker_corners_w=corners_w, marker_uv=uv_mk, marker_mask=m_mask,
+        marker_weight=cfg.aruco.edge_weight, chi2_th=cfg.optim.chi2_mono,
+        huber_delta=cfg.optim.huber_delta,
+        rounds=cfg.optim.pose_rounds if rounds is None else rounds,
+        iters_per_round=(cfg.optim.pose_iters_per_round
+                         if iters_per_round is None else iters_per_round),
+    )
+    return r, torch.where(r.inliers, obs_point, -1)
+
+
+def track_frame(state: MapState, frame: Frame, slots, Rcw0, tcw0,
+                last_uv, last_desc, last_obs, last_valid, last_octave,
+                last_angle, cam: Camera, cfg: SlamConfig,
+                search_radius: float, old=None) -> TrackResult:
+    """Project the last frame's map points with the seed pose, window-match
+    with the rotation histogram, optimize (TrackWithMotionModel /
+    TrackByAruco body)."""
+    pts, pvalid = _point_world_arrays(state, last_obs)
+    pvalid = pvalid & last_valid
+    p_cam = se3_apply(Rcw0[None], tcw0[None], pts)
+    uv_pred = cam_mod.project(cam, p_cam)
+    m = matching.match_in_window(
+        last_desc, frame.desc, uv_pred, frame.kp_uv, radius=search_radius,
+        mask_a=pvalid & (p_cam[..., 2] > 0.05)
+        & cam_mod.in_image(cam, uv_pred, margin=1.0),
+        mask_b=frame.kp_valid, octave_a=last_octave,
+        octave_b=frame.kp_octave, max_octave_diff=1,
+        max_dist=float(cfg.matcher.th_high),
+        nn_ratio=cfg.matcher.nn_ratio_tracking,
+        angles_a=last_angle, angles_b=frame.kp_angle,
+        check_rotation=cfg.matcher.check_orientation,
+        histo_length=cfg.matcher.histo_length,
+    )
+    N = frame.kp_uv.shape[0]
+    obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
+                             torch.where(m.valid, last_obs, -1))
+    res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
+                             cfg, old)
+    return TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers,
+                       m.valid.sum())
+
+
+def track_vs_keyframe(state: MapState, frame: Frame, slots, kf, Rcw0, tcw0,
+                      cam: Camera, cfg: SlamConfig, old=None) -> TrackResult:
+    """Descriptor-only matching against one keyframe's map-point features
+    (TrackReferenceKeyFrame), then optimize."""
+    kf_obs = state.kf_obs_point[kf]
+    kf_valid = (state.kf_kp_valid[kf] & (kf_obs >= 0)
+                & state.pt_valid[torch.clamp(kf_obs, min=0)])
+    d = matching.distance_matrix(state.kf_desc[kf], frame.desc, kf_valid,
+                                 frame.kp_valid)
+    m = matching.nn_match(d, max_dist=float(cfg.matcher.th_low),
+                          nn_ratio=cfg.matcher.nn_ratio_init, mutual=True)
+    if cfg.matcher.check_orientation:
+        m = matching.rotation_consistency(state.kf_kp_angle[kf],
+                                          frame.kp_angle, m,
+                                          cfg.matcher.histo_length)
+    N = frame.kp_uv.shape[0]
+    obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
+                             torch.where(m.valid, kf_obs, -1))
+    res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
+                             cfg, old)
+    return TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers,
+                       m.valid.sum())
+
+
+def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
+                    obs_point, cam: Camera, cfg: SlamConfig, old=None,
+                    pt_candidates=None, radius_scale: float = 1.0):
+    """Search unmatched local-map points by projection and re-optimize
+    (TrackLocalMap + SearchLocalPoints). Returns (TrackResult,
+    (pt_visible, pt_found))."""
+    L = state.L
+    dev = obs_point.device
+    pts = state.pt_xyz
+    p_cam = se3_apply(Rcw0[None], tcw0[None], pts)
+    uv_pred = cam_mod.project(cam, p_cam)
+    dist = torch.linalg.norm(p_cam, dim=-1)
+    visible = (state.pt_valid & (p_cam[..., 2] > 0.05)
+               & cam_mod.in_image(cam, uv_pred, margin=1.0)
+               & (dist >= 0.8 * state.pt_min_dist)
+               & (dist <= 1.2 * state.pt_max_dist))
+    _, twc = se3_inverse(Rcw0, tcw0)
+    view = pts - twc[None]
+    vn = view / torch.clamp(torch.linalg.norm(view, dim=-1, keepdim=True),
+                            min=1e-9)
+    cosang = torch.sum(vn * state.pt_normal, dim=-1)
+    has_normal = torch.linalg.norm(state.pt_normal, dim=-1) > 0.1
+    visible = visible & (~has_normal | (cosang > 0.5))
+    already = _mark(L, obs_point)
+    cand = visible & ~already
+    if pt_candidates is not None:
+        cand = cand & pt_candidates
+    sf = cfg.orb.scale_factor
+    lvl_ratio = (torch.clamp(state.pt_max_dist, min=1e-6)
+                 / torch.clamp(dist, min=1e-6))
+    oct_pred = torch.clamp(torch.ceil(torch.log(lvl_ratio) / torch.log(
+        torch.tensor(sf, dtype=torch.float32, device=dev))),
+        0, cfg.orb.num_levels - 1).to(torch.int64)
+    C = min(L, cfg.tracking.local_map_candidates)
+    cscore, cidx = stable_topk(cand, C)
+    csel = cscore > 0
+    feat_free = frame.kp_valid & (obs_point < 0)
+    oct_c = oct_pred[cidx]
+    m = matching.match_in_window(
+        state.pt_desc[cidx], frame.desc, uv_pred[cidx], frame.kp_uv,
+        radius=cfg.matcher.search_radius_map * radius_scale
+        * (sf ** oct_c.to(torch.float32)),
+        mask_a=csel, mask_b=feat_free, octave_a=oct_c,
+        octave_b=frame.kp_octave, max_octave_diff=1,
+        max_dist=float(cfg.matcher.th_high),
+        nn_ratio=cfg.matcher.nn_ratio_tracking,
+    )
+    N = frame.kp_uv.shape[0]
+    new_obs = _scatter_max(N, torch.where(m.valid, m.idx, N),
+                           torch.where(m.valid, cidx, -1))
+    obs_point = torch.where(obs_point >= 0, obs_point, new_obs)
+    n_matches = (obs_point >= 0).sum()
+    res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
+                             cfg, old)
+    found_sel = _mark(L, obs_out)
+    new_visible = state.pt_visible + visible.to(torch.float32)
+    new_found = state.pt_found + found_sel.to(torch.float32)
+    return (TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers, n_matches),
+            (new_visible, new_found))
+
+
+def _cascade_seed(state: MapState, frame: Frame, R_pred, t_pred, R_last,
+                  t_last, last_uv, last_desc, last_obs, last_valid,
+                  last_octave, last_angle, ref_kf, cam: Camera,
+                  cfg: SlamConfig):
+    """Marker seed + motion-model tracking with the widened-window and
+    reference-keyframe fallbacks (Tracking.cc:233-258). Returns (tr, slots,
+    old, ok_a, need_ref)."""
+    slots = bind_markers(state, frame)
+    old = old_marker_flags(state, slots, cfg.loop.min_kfs_between_loops)
+    ok_a, R_a, t_a, _ = aruco_pose_candidate(state, frame, slots, cam, cfg,
+                                             old=old)
+    R0 = torch.where(ok_a, R_a, R_pred)
+    t0 = torch.where(ok_a, t_a, t_pred)
+    last = (last_uv, last_desc, last_obs, last_valid, last_octave, last_angle)
+    tr = track_frame(state, frame, slots, R0, t0, *last, cam, cfg,
+                     search_radius=cfg.matcher.search_radius_motion, old=old)
+    # widened-window retry (TrackWithMotionModel, Tracking.cc:1010-1015)
+    if host_sync(tr.n_matches < 20):
+        tr = track_frame(state, frame, slots, R0, t0, *last, cam, cfg,
+                         search_radius=2.0 * cfg.matcher.search_radius_motion,
+                         old=old)
+    need_ref = tr.n_inliers < cfg.tracking.min_inliers_track
+    if host_sync(need_ref):
+        # TrackReferenceKeyFrame seeds from the LAST pose
+        tr = track_vs_keyframe(state, frame, slots, ref_kf, R_last, t_last,
+                               cam, cfg, old=old)
+    return tr, slots, old, ok_a, need_ref
+
+
+def _cascade_refine(state: MapState, frame: Frame, tr, slots, old, ok_a,
+                    need_ref, ref_kf, cam: Camera,
+                    cfg: SlamConfig) -> FullTrackResult:
+    """Local-map search + pose refine (TrackLocalMap) and the
+    NeedNewKeyFrame inputs."""
+    pt_local, best_kf = local_point_mask(state, tr.obs_point,
+                                         cfg.tracking.max_local_keyframes)
+    tr2, (vis, found) = track_local_map(state, frame, slots, tr.Rcw, tr.tcw,
+                                        tr.obs_point, cam, cfg, old=old,
+                                        pt_candidates=pt_local)
+    any_new = (frame.mk_good & frame.mk_valid & (slots < 0)).any()
+    ref_kf = torch.where(best_kf >= 0, best_kf, ref_kf)
+    ref_obs = state.kf_obs_point[ref_kf]
+    ref_obs_safe = torch.clamp(ref_obs, min=0)
+    ref_pt_ok = (ref_obs >= 0) & state.pt_valid[ref_obs_safe]
+    obs_count = (state.pt_obs_kf & state.kf_valid[None, :]).sum(dim=1)
+    ref_cnt = obs_count[ref_obs_safe]
+    n_ref3 = (ref_pt_ok & (ref_cnt >= 3)).sum()
+    n_ref2 = (ref_pt_ok & (ref_cnt >= 2)).sum()
+    f = lambda x: x.to(torch.float32).reshape(-1)  # noqa: E731
+    ctrl = torch.cat([
+        f(tr2.n_inliers), f(tr.n_inliers), f(ok_a), f(need_ref), f(any_new),
+        f(tr2.Rcw), f(tr2.tcw), f(n_ref3), f(n_ref2), f(ref_kf),
+    ])
+    return FullTrackResult(
+        Rcw=tr2.Rcw, tcw=tr2.tcw, obs_point=tr2.obs_point,
+        n_inliers=tr2.n_inliers, n_first_stage=tr.n_inliers,
+        used_aruco=ok_a, used_ref_kf=need_ref, slots=slots, old_flags=old,
+        any_new_marker=any_new, pt_visible=vis, pt_found=found, ctrl=ctrl,
+    )
+
+
+def track_full(state: MapState, frame: Frame, R_pred, t_pred, R_last, t_last,
+               last_uv, last_desc, last_obs, last_valid, last_octave,
+               last_angle, ref_kf, cam: Camera,
+               cfg: SlamConfig) -> FullTrackResult:
+    """The whole per-frame OK-state cascade (Track(), Tracking.cc:192-492,
+    minus keyframe creation)."""
+    tr, slots, old, ok_a, need_ref = _cascade_seed(
+        state, frame, R_pred, t_pred, R_last, t_last, last_uv, last_desc,
+        last_obs, last_valid, last_octave, last_angle, ref_kf, cam, cfg)
+    return _cascade_refine(state, frame, tr, slots, old, ok_a, need_ref,
+                           ref_kf, cam, cfg)
