@@ -3,48 +3,75 @@
 
     python3 chip_smoke.py
 
-Drives orb_slam2_aruco_tpu_torch's main path — localization against a saved
-map — at the bench configuration (960x540, 1000 ORB features, 8 levels,
+Drives orb_slam2_aruco_tpu_torch's paths — localization against a saved map
+— at the bench configuration (960x540, 1000 ORB features, 8 levels,
 detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
 
   1. device   CUDA must be available (no CPU fallback); prints the card's
               name and power limit as nvidia-smi reports them.
-  2. build    compiles the three CUDA kernels from kernels/csrc (one nvcc
+  2. build    compiles the four CUDA kernels from kernels/csrc (one nvcc
               per source, all at once).
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the main path gives it on a rendered 960x540 frame:
-              K1 FAST on the 8 pyramid levels, K2 patches at each level's
-              keypoint quota, K3 connected components on the 270x480
-              half-resolution binary. Outputs must be equal (K1: in the
-              unmasked interior). Median times from CUDA events.
-  4. slice    SlamSystem.load_map(data/ref_full.npz) + track_monocular on
-              the 32 recorded frames (rendered here by the port's
-              io/synthetic). States must equal the JAX package's, poses
-              within 0.2 deg / 1 cm of its poses, and the ATE at most
-              max(1.5 x, +5 mm) of its ATE. Every kernel must have launched
-              during this run (launch counts are zeroed just before it).
-  5. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+              the shapes its path gives it on a rendered 960x540 frame: K1
+              FAST on the 8 pyramid levels, K2 patches at each level's
+              keypoint quota, K3 connected components and K4 one label
+              sweep (initial labels and labels after one round) on the
+              270x480 half-resolution binary. Outputs must be equal (K1: in
+              the unmasked interior). Median times from CUDA events, beside
+              each kernel's bound and, where one PyTorch call computes the
+              same function, that call's time.
+  4. slice    per-frame localization: SlamSystem.load_map(data/ref_full.npz)
+              + track_monocular on the 32 recorded frames (rendered here by
+              the port's io/synthetic). States must equal the JAX package's,
+              poses within 0.2 deg / 1 cm of its poses, the ATE at most
+              max(1.5 x, +5 mm) of its ATE.
+  5. quads    the K4 route of the quad proposal,
+              quad_candidates(use_pallas_cc=True), on the half-resolution
+              binaries of the frames the reference file records: valid and
+              score equal to the JAX package's, valid quads equal.
+  6. stream   the chunked serving form bench.py times: after one
+              relocalizing track_monocular, localize_stream(StagedSource(
+              frames, batch=64), chunk=64) in extrapolate mode, two chunks in
+              flight, over 128 frames (frame k = recorded frame k % 32).
+              Emitted frame ids and OK/None states must equal the JAX
+              package's recorded stream, poses within 0.2 deg / 1 cm. Prints
+              fps, the median per-chunk latency (bench.py:205-208), host
+              syncs per chunk and rewinds; then one more chunk, of
+              DEBUG_FRAMES frames, under torch's sync debug mode counts
+              every synchronizing call.
+  7. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
-Any failed phase exits non-zero before the last line is printed.
+Launch counts are zeroed just before each of slice, quads and stream and
+read just after: each must have launched the kernels of its path (K1-K3 on
+slice and stream, K4 on quads). Any failed phase exits non-zero before the
+last line is printed.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "orb_slam2_aruco_tpu_torch"
 DEVICE = "cuda"
 
-# tolerance of the slice against the JAX package's recorded localization
+# tolerance of the port against the JAX package's recorded localization
 ROT_TOL_DEG = 0.2
 TRANS_TOL_M = 0.01
+
+# frames of the two untimed measurements, kept short for the script's time:
+# the slice's frontend / tracking split and the stream's sync-debug chunk
+SPLIT_FRAMES = 12
+DEBUG_FRAMES = 16
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -53,7 +80,27 @@ KERNEL_META = {
                 "orb_slam2_aruco_tpu/ops/pallas_patches.py:61"),
     "cc_fused": ("orb_slam2_aruco_tpu_torch/kernels/csrc/cc_fused.cu",
                  "orb_slam2_aruco_tpu/ops/pallas_cc_fused.py:185"),
+    "cc_propagate": ("orb_slam2_aruco_tpu_torch/kernels/csrc/cc_propagate.cu",
+                     "orb_slam2_aruco_tpu/ops/pallas_cc.py:103"),
 }
+
+# the kernels each path must launch
+PATH_KERNELS = {
+    "slice": ("fast", "patches", "cc_fused"),
+    "quads": ("cc_propagate",),
+    "stream": ("fast", "patches", "cc_fused"),
+}
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and float32
+# operations/s outside the tensor cores, taken as the 32-bit scalar rate;
+# the int32 compares and min/max of K3 and K4 are counted at it too
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+# K1 operations per pixel: 16 circle terms x 12 (difference, negation, four
+# threshold compares, two subtract-clamp-add chains), four arc-of-9 tests x
+# 17 bit operations, the 3x3 NMS and bonus (11)
+FAST_OPS_PER_PX = 16 * 12 + 4 * 17 + 11
 
 
 class PhaseError(Exception):
@@ -81,6 +128,29 @@ def cuda_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes, ops):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over HBM bandwidth and the operations over the scalar rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_launches(path, counts):
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise PhaseError(f"kernels never launched by the {path} path: "
+                         f"{missing} (counts {counts})")
+
+
+def rot_err_deg(Ra, Rb):
+    import numpy as np
+
+    # chordal distance |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2)
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2.0 * np.arcsin(min(1.0, d / (2.0 * np.sqrt(2.0))))))
 
 
 def device_phase():
@@ -138,20 +208,61 @@ def load_reference():
     return path, cfg, ref, imgs
 
 
-def kernel_phase(cfg, img_np):
-    """Each kernel against its plain version at the main path's shapes.
-    Returns {name: (max_abs_err, ms, plain_ms)}; ms are per frame (K1 and
-    K2 summed over the 8 pyramid levels)."""
+def half_res_binary(img_np, cfg):
+    """The quad proposal's input: adaptive threshold + majority downsample
+    of a frame, on the card."""
     import torch
 
-    from orb_slam2_aruco_tpu_torch.ops import cc_fused, fast, image, orb
+    from orb_slam2_aruco_tpu_torch.ops.aruco import detector
+
+    acfg = cfg.aruco
+    gray = torch.as_tensor(img_np).to(DEVICE).float()
+    binary = detector.adaptive_threshold(gray, acfg.adaptive_thresh_win,
+                                         acfg.adaptive_thresh_c)
+    return detector.downsample_majority(binary, acfg.detect_downsample)
+
+
+def window_union_px(shape, y0, x0, size=32):
+    """Pixels covered by the union of size x size windows at (y0, x0)."""
+    import numpy as np
+
+    diff = np.zeros((shape[0] + 1, shape[1] + 1), np.int32)
+    for y, x in zip(y0, x0):
+        diff[y, x] += 1
+        diff[y, x + size] -= 1
+        diff[y + size, x] -= 1
+        diff[y + size, x + size] += 1
+    return int((diff.cumsum(0).cumsum(1) > 0).sum())
+
+
+def kernel_phase(cfg, img_np):
+    """Each kernel against its plain version at its path's shapes. Returns
+    {name: report dict}; K1 and K2 ms are per frame (8 pyramid levels), K3
+    per call, K4 per sweep (one launch)."""
+    import torch
+
+    from orb_slam2_aruco_tpu_torch.ops import (
+        cc_fused,
+        cc_propagate,
+        fast,
+        image,
+        orb,
+    )
     from orb_slam2_aruco_tpu_torch.ops.aruco import detector
     from orb_slam2_aruco_tpu_torch.pipeline.frontend import level_quotas
 
     ocfg = cfg.orb
-    gray = torch.as_tensor(img_np).cuda().float()
+    gray = torch.as_tensor(img_np).to(DEVICE).float()
     levels = image.build_pyramid(gray, ocfg.num_levels, ocfg.scale_factor)
     out = {}
+
+    def report(name, err, ms, plain, nbytes, ops, library):
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=library)
+        lib = "none" if library is None else f"{library:.4f} ms"
+        return (f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b_ms:.5f} ms by "
+                f"{b_by}, library {lib})")
 
     # K1: FAST score + NMS on the 8 levels
     err = 0.0
@@ -173,10 +284,10 @@ def kernel_phase(cfg, img_np):
                           for l in levels])
     plain = cuda_ms(lambda: [fast.fast_score_nms_torch(l, *t_args)
                              for l in levels])
-    out["fast"] = (err, ms, plain)
+    px = sum(l.numel() for l in levels)
+    msg = report("fast", err, ms, plain, 8 * px, FAST_OPS_PER_PX * px, None)
     phase("kernels", f"K1 fast: equal to plain on {len(levels)} levels "
-          f"{[tuple(l.shape) for l in levels]}; {ms:.4f} ms vs plain "
-          f"{plain:.4f} ms per frame")
+          f"{[tuple(l.shape) for l in levels]}; per frame {msg}")
 
     # K2: patches at each level's keypoint quota
     quotas = level_quotas(ocfg.num_features, ocfg.num_levels,
@@ -190,23 +301,29 @@ def kernel_phase(cfg, img_np):
         blurred = image.gaussian_blur(lvl, ocfg.blur_ksize, ocfg.blur_sigma)
         y0, x0 = orb.patch_corners(blurred.shape, kp.xy)
         jobs.append((blurred, y0, x0))
+    ar = torch.arange(32, device=DEVICE)
+    gathers = []      # the library yardstick: one advanced-index gather
+    nbytes = 0
     for blurred, y0, x0 in jobs:
         a = orb.extract_patches_cuda(blurred, y0, x0)
         b = orb.extract_patches_torch(blurred, y0, x0)
+        yy = y0.long()[:, None, None] + ar[None, :, None]
+        xx = x0.long()[:, None, None] + ar[None, None, :]
         torch.cuda.synchronize()
-        if not torch.equal(a, b):
+        if not torch.equal(a, b) or not torch.equal(a, blurred[yy, xx]):
             raise PhaseError("K2 patches differ from their plain version")
+        gathers.append((blurred, yy, xx))
+        nbytes += 4 * (a.numel() + window_union_px(
+            blurred.shape, y0.cpu().tolist(), x0.cpu().tolist()))
     ms = cuda_ms(lambda: [orb.extract_patches_cuda(*j) for j in jobs])
     plain = cuda_ms(lambda: [orb.extract_patches_torch(*j) for j in jobs])
-    out["patches"] = (0.0, ms, plain)
-    phase("kernels", f"K2 patches: equal to plain for quotas {quotas}; "
-          f"{ms:.4f} ms vs plain {plain:.4f} ms per frame")
+    library = cuda_ms(lambda: [b[yy, xx] for b, yy, xx in gathers])
+    msg = report("patches", 0.0, ms, plain, nbytes, 0, library)
+    phase("kernels", f"K2 patches: equal to plain for quotas {quotas}; per "
+          f"frame {msg}")
 
     # K3: CC + bbox on the half-resolution binary of the frame
-    acfg = cfg.aruco
-    binary = detector.adaptive_threshold(gray, acfg.adaptive_thresh_win,
-                                         acfg.adaptive_thresh_c)
-    binary = detector.downsample_majority(binary, acfg.detect_downsample)
+    binary = half_res_binary(img_np, cfg)
     a = cc_fused.cc_fused_cuda(binary)
     b = cc_fused.cc_fused_torch(binary)
     torch.cuda.synchronize()
@@ -214,24 +331,58 @@ def kernel_phase(cfg, img_np):
         raise PhaseError("K3 cc_fused differs from its plain version")
     ms = cuda_ms(lambda: cc_fused.cc_fused_cuda(binary))
     plain = cuda_ms(lambda: cc_fused.cc_fused_torch(binary))
-    out["cc_fused"] = (0.0, ms, plain)
+    H, W = binary.shape
+    Hp, Wp = cc_fused.padded_shape(H, W)
+    # 3 rounds x (2 steps x 8 neighbours x 4 fields + 4 scans x 4 fields)
+    msg = report("cc_fused", 0.0, ms, plain, H * W * (1 + 3 * 4),
+                 Hp * Wp * 3 * (2 * 8 * 4 + 4 * 4), None)
     phase("kernels", f"K3 cc_fused: lab/bw/bh/Wp equal to plain on "
-          f"{tuple(binary.shape)} ({int(binary.sum())} foreground px); "
-          f"{ms:.4f} ms vs plain {plain:.4f} ms per frame")
+          f"{tuple(binary.shape)} ({int(binary.sum())} foreground px); per "
+          f"call {msg}")
+
+    # K4: one sweep (tile 128, 16 steps) on the initial labels and on the
+    # labels after one round (sweep + pointer jump)
+    k, tile = 16, 128
+    labels0 = detector.initial_labels(binary)
+    labels1 = detector.pointer_jump(
+        cc_propagate.cc_propagate_torch(labels0, 1, k, tile), H * W)
+    for lab in (labels0, labels1):
+        a = cc_propagate.cc_propagate_cuda(lab, 1, k, tile)
+        b = cc_propagate.cc_propagate_torch(lab, 1, k, tile)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            n = int((a != b).sum())
+            raise PhaseError(f"K4 cc_propagate differs from its plain "
+                             f"version at {n} pixels")
+    ms = cuda_ms(lambda: cc_propagate.cc_propagate_cuda(labels0, 1, k, tile))
+    # the kernel alone: ten more sweeps in one call add ten launches and
+    # nothing else (padding and crop are once per call)
+    kernel_ms = (cuda_ms(lambda: cc_propagate.cc_propagate_cuda(
+        labels0, 11, k, tile)) - ms) / 10
+    plain = cuda_ms(lambda: cc_propagate.cc_propagate_torch(labels0, 1, k,
+                                                            tile))
+    acfg = cfg.aruco
+    quad_ms = cuda_ms(lambda: detector.quad_candidates(
+        binary, acfg.max_quad_candidates,
+        min_area=acfg.min_quad_side_px**2 / acfg.detect_downsample**2,
+        cc_iters=acfg.cc_iters, use_pallas_cc=True), reps=10)
+    Hq, Wq = -(-H // tile) * tile, -(-W // tile) * tile
+    tiles = (Hq // tile) * (Wq // tile)
+    hb = tile + 2 * k
+    msg = report("cc_propagate", 0.0, ms, plain,
+                 4 * ((Hq + 2 * k) * (Wq + 2 * k) + Hq * Wq),
+                 tiles * k * (hb - 2) ** 2 * 8, None)
+    phase("kernels", f"K4 cc_propagate: equal to plain on {(H, W)} padded "
+          f"to {(Hq + 2 * k, Wq + 2 * k)}, {tiles} tiles, initial and "
+          f"one-round labels; per sweep {msg}, of which the kernel alone "
+          f"{kernel_ms:.4f} ms; one whole quad_candidates(use_pallas_cc="
+          f"True) {quad_ms:.4f} ms")
     return out
 
 
-def rot_err_deg(Ra, Rb):
-    import numpy as np
-
-    # chordal distance |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2)
-    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
-    return float(np.degrees(2.0 * np.arcsin(min(1.0, d / (2.0 * np.sqrt(2.0))))))
-
-
 def slice_phase(path, cfg, ref, imgs):
-    """The main path: load the map, localize the 32 frames. Returns the
-    kernel launch counts of this run."""
+    """Per-frame localization: load the map, localize the 32 frames.
+    Returns the kernel launch counts of this run."""
     import numpy as np
     import torch
 
@@ -246,9 +397,9 @@ def slice_phase(path, cfg, ref, imgs):
 
     system = SlamSystem(cfg, device=DEVICE)
     system.load_map(path)
+    torch.cuda.synchronize()
     kernels.reset_launch_counts()
     tracking.SYNCS["count"] = 0
-    torch.cuda.synchronize()
     frame_s, poses, states = [], [], []
     t_all = time.perf_counter()
     for i, img in enumerate(imgs):
@@ -261,11 +412,8 @@ def slice_phase(path, cfg, ref, imgs):
     total = time.perf_counter() - t_all
     counts = dict(kernels.launch_counts)
     syncs = tracking.SYNCS["count"]
-    phase("slice", f"kernel launches in the main path: {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise PhaseError(f"kernels never launched by the main path: "
-                         f"{missing}")
+    phase("slice", f"kernel launches in the per-frame path: {counts}")
+    check_launches("slice", counts)
 
     ref_ok = ref["ref_ok"].astype(bool)
     if list(ref_ok) != states:
@@ -309,7 +457,7 @@ def slice_phase(path, cfg, ref, imgs):
     split = SlamSystem(cfg, device=DEVICE)
     split.load_map(path)
     fe, tr = [], []
-    for i, img in enumerate(imgs):
+    for i, img in enumerate(imgs[:SPLIT_FRAMES]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frame = make_frame(torch.as_tensor(img).to(DEVICE), split.cam, cfg)
@@ -319,10 +467,149 @@ def slice_phase(path, cfg, ref, imgs):
         torch.cuda.synchronize()
         fe.append(t1 - t0)
         tr.append(time.perf_counter() - t1)
-    phase("slice", f"split over frames 2-{len(imgs) - 1}: frontend "
+    phase("slice", f"split over frames 2-{len(fe) - 1}: frontend "
           f"(make_frame) median {statistics.median(fe[2:]) * 1000:.2f} ms, "
           f"tracking median {statistics.median(tr[2:]) * 1000:.2f} ms per "
           f"frame")
+    return counts
+
+
+def quads_phase(cfg, ref, imgs):
+    """The K4 route of the quad proposal on the recorded frames. Returns
+    the kernel launch counts of this run."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.ops.aruco import detector
+
+    acfg = cfg.aruco
+    frames = [int(i) for i in ref["ref_quad_frames"]]
+    binaries = [half_res_binary(imgs[i], cfg) for i in frames]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [detector.quad_candidates(
+        b, acfg.max_quad_candidates,
+        min_area=acfg.min_quad_side_px**2 / acfg.detect_downsample**2,
+        cc_iters=acfg.cc_iters, use_pallas_cc=True) for b in binaries]
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    phase("quads", f"kernel launches in {len(frames)} quad_candidates("
+          f"use_pallas_cc=True) calls: {counts}")
+    check_launches("quads", counts)
+    for k, (i, (q, s, v)) in enumerate(zip(frames, outs)):
+        want_v = ref["ref_quad_valid"][k]
+        v, s, q = v.cpu().numpy(), s.cpu().numpy(), q.cpu().numpy()
+        if not (np.array_equal(v, want_v)
+                and np.array_equal(s, ref["ref_quad_score"][k])
+                and np.array_equal(q[want_v], ref["ref_quad_q"][k][want_v])):
+            raise PhaseError(f"K4 quad proposal of frame {i} differs from "
+                             f"the JAX package's (valid {int(v.sum())} vs "
+                             f"{int(want_v.sum())})")
+    phase("quads", f"frames {frames}: valid, score and valid quads equal to "
+          f"the JAX package's ({[int(v.sum()) for v in ref['ref_quad_valid']]}"
+          f" valid); {counts['cc_propagate'] / len(frames):.0f} K4 launches "
+          f"per call")
+    return counts
+
+
+def stream_phase(path, cfg, ref, imgs):
+    """The chunked serving form against the recorded JAX stream. Returns
+    the kernel launch counts of the timed run."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import (
+        SlamSystem,
+        TrackingState,
+    )
+
+    spec = json.loads(str(ref["ref_stream_spec"]))
+    order = [int(k) for k in ref["ref_stream_order"]]
+    chunk, depth = spec["chunk"], spec["depth"]
+    scfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, loc_seed_mode=spec["loc_seed_mode"],
+        loc_extrap_passes=spec["loc_extrap_passes"]))
+    blank = np.full(imgs[0].shape, 128, np.uint8)
+    frames = [(blank if k < 0 else imgs[k], 1.0 + j / 30.0)
+              for j, k in enumerate(order)]
+    system = SlamSystem(scfg, device=DEVICE)
+    system.load_map(path)
+    system.track_monocular(imgs[0], ts=0.0)
+    if system.state is not TrackingState.OK:
+        raise PhaseError("the stream's first frame did not relocalize")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.SYNCS["count"] = 0
+    emit_t, out = [], []
+    t0 = time.perf_counter()
+    for fid, _, p in system.localize_stream(
+            StagedSource(frames, batch=chunk, device=DEVICE), chunk=chunk,
+            depth=depth):
+        emit_t.append(time.perf_counter() - t0)
+        out.append((fid, p))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    syncs = tracking.SYNCS["count"]
+    chunks, rewinds = system.stats["chunks"], system.stats["rewinds"]
+    phase("stream", f"kernel launches in the stream: {counts}")
+    check_launches("stream", counts)
+
+    fids = [f for f, _ in out]
+    if fids != ref["ref_stream_fid"].tolist():
+        raise PhaseError(f"emitted frames differ from the JAX stream: "
+                         f"{fids} vs {ref['ref_stream_fid'].tolist()}")
+    ok = [p is not None for _, p in out]
+    if ok != ref["ref_stream_ok"].tolist():
+        raise PhaseError(f"OK/None states differ from the JAX stream at "
+                         f"{[j for j, o in enumerate(ok) if o != ref['ref_stream_ok'][j]]}")
+    worst_r = worst_t = 0.0
+    for j, (_, p) in enumerate(out):
+        if p is None:
+            continue
+        worst_r = max(worst_r, rot_err_deg(p[0], ref["ref_stream_R"][j]))
+        worst_t = max(worst_t, float(np.linalg.norm(
+            np.asarray(p[1], np.float64) - ref["ref_stream_t"][j])))
+    if worst_r > ROT_TOL_DEG or worst_t > TRANS_TOL_M:
+        raise PhaseError(f"stream poses off the JAX run: {worst_r:.4f} deg, "
+                         f"{worst_t * 100:.4f} cm")
+    n = len(out)
+    bursts = [emit_t[0]] + [emit_t[k] - emit_t[k - chunk]
+                            for k in range(chunk, n, chunk)]
+    phase("stream", f"{n} frames emitted, {sum(ok)} OK (= JAX); poses "
+          f"within {worst_r:.5f} deg / {worst_t * 100:.5f} cm of JAX")
+    phase("stream", f"localize_stream chunk {chunk} depth {depth} "
+          f"({spec['loc_seed_mode']}, passes {spec['loc_extrap_passes']}): "
+          f"{n / dt:.2f} fps over {n} frames ({dt:.2f} s); median chunk "
+          f"latency {statistics.median(bursts) * 1000:.1f} ms (bursts "
+          f"{[round(b * 1000, 1) for b in bursts]} ms); host syncs {syncs} "
+          f"over {chunks} chunks = {syncs / max(chunks, 1):.2f} per chunk; "
+          f"rewinds {rewinds}")
+
+    # every synchronizing call of one more chunk (not timed)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in system.localize_stream(
+                    StagedSource(frames[:DEBUG_FRAMES], batch=DEBUG_FRAMES,
+                                 device=DEVICE),
+                    chunk=DEBUG_FRAMES, depth=depth):
+                pass
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    n_sync = sum(where.values())
+    phase("stream", f"sync debug mode, one chunk of {DEBUG_FRAMES}: "
+          f"{n_sync} synchronizing calls ({n_sync / DEBUG_FRAMES:.2f} per "
+          f"frame); most frequent {where.most_common(6)}")
     return counts
 
 
@@ -331,6 +618,7 @@ def main() -> int:
         print(f"FAIL: {PKG}/ not found beside chip_smoke.py", flush=True)
         return 1
     sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
     try:
         import torch
 
@@ -338,17 +626,22 @@ def main() -> int:
         build_phase()
         path, cfg, ref, imgs = load_reference()
         kres = kernel_phase(cfg, imgs[0])
-        counts = slice_phase(path, cfg, ref, imgs)
+        by_path = {"slice": slice_phase(path, cfg, ref, imgs),
+                   "quads": quads_phase(cfg, ref, imgs),
+                   "stream": stream_phase(path, cfg, ref, imgs)}
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
-         "replaces": KERNEL_META[name][1], "launches": counts[name],
-         "max_abs_err": kres[name][0], "ms": kres[name][1],
-         "plain_ms": kres[name][2], "held_against_plain": "ok"}
+         "replaces": KERNEL_META[name][1],
+         "launches": sum(c[name] for c in by_path.values()),
+         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         **kres[name]}
         for name in KERNEL_META
     ]}
+    phase("report", f"all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

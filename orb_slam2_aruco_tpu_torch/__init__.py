@@ -5,12 +5,15 @@ Monocular ORB + ArUco SLAM engine for one NVIDIA H100. The JAX package
 function is tested against its JAX counterpart on the same inputs
 (tests/test_torch_*.py). This package imports torch and numpy only, never jax.
 
-Ported so far (slice 1): localization against a map the JAX package built —
-`pipeline.system.SlamSystem.load_map` + `track_monocular`. The three Pallas
-kernels on that path are hand-written CUDA kernels here (kernels/csrc):
-FAST score + NMS (ops/fast.py), patch extraction (ops/orb.py) and the fused
-connected components + blob bounding boxes (ops/cc_fused.py). Each has a
-plain PyTorch version beside it, used for CPU tensors.
+Ported so far: localization against a map the JAX package built —
+`pipeline.system.SlamSystem.load_map`, then `track_monocular` frame by frame
+or the chunked serving form `track_monocular_batch` / `localize_stream`. All
+four Pallas kernels are hand-written CUDA kernels here (kernels/csrc): FAST
+score + NMS (ops/fast.py), patch extraction (ops/orb.py), the fused
+connected components + blob bounding boxes (ops/cc_fused.py) and the
+tile-local label propagation of the unfused quad proposal
+(ops/cc_propagate.py). Each has a plain PyTorch version beside it, used for
+CPU tensors. Entry points run on the card unless given device="cpu".
 """
 
 __version__ = "0.1.0"
@@ -27,3 +30,13 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from orb_slam2_aruco_tpu_torch.config import SlamConfig  # noqa: E402,F401
+
+
+def require_device(device) -> _torch.device:
+    """`device` as a torch.device; raises when it names CUDA and there is no
+    CUDA GPU (an entry point never falls back to the CPU)."""
+    device = _torch.device(device)
+    if device.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU is available: this entry point runs "
+                           "on the card unless it is given device='cpu'")
+    return device

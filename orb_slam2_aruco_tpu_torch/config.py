@@ -63,10 +63,10 @@ class ArucoConfig:
     adaptive_thresh_c: float = 7.0
     cc_iters: int = 0
     detect_downsample: int = 1
-    use_pallas_cc: bool = True        # the fused CC + bbox quad proposal
-                                      # (ops/cc_fused.py, kernel K3); the
-                                      # name is kept for dictionary parity
-                                      # with the JAX config
+    use_pallas_cc: bool = True        # quad proposal: True = fused CC +
+                                      # bbox (ops/cc_fused.py, kernel K3),
+                                      # False = connected_components; the
+                                      # name is the JAX config's
     min_quad_side_px: float = 10.0
     refine_samples: int = 16
     refine_search: int = 11

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from orb_slam2_aruco_tpu_torch import require_device
 from orb_slam2_aruco_tpu_torch.config import MapConfig
 from orb_slam2_aruco_tpu_torch.worldmap.state import MapState, state_from_numpy
 
@@ -69,5 +70,6 @@ def load_map_arrays(path: str) -> dict:
     return arrays
 
 
-def load_map(path: str, device="cpu") -> MapState:
-    return state_from_numpy(load_map_arrays(path), device)
+def load_map(path: str, device="cuda") -> MapState:
+    """The checkpoint's map on `device` (the card unless told otherwise)."""
+    return state_from_numpy(load_map_arrays(path), require_device(device))

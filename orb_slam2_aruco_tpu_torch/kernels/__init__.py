@@ -10,18 +10,18 @@ The kernels replace the TPU kernels of orb_slam2_aruco_tpu:
   fast      <- ops/pallas_fast.py::fast_score_nms       (ops/fast.py)
   patches   <- ops/pallas_patches.py::extract_patches_pallas  (ops/orb.py)
   cc_fused  <- ops/pallas_cc_fused.py::cc_fused          (ops/cc_fused.py)
+  cc_propagate <- ops/pallas_cc.py::cc_propagate_pallas  (ops/cc_propagate.py)
 
 The Python bindings live beside the plain PyTorch versions in those ops
-modules. `launch_counts` counts, per kernel, the calls that launched it on
-the card: each binding adds one right after its launch succeeds, and nowhere
-else.
+modules. `launch_counts` counts, per kernel, the launches on the card: each
+binding adds one right after a launch succeeds, and nowhere else.
 """
 
 from __future__ import annotations
 
 from orb_slam2_aruco_tpu_torch.kernels import build  # noqa: F401
 
-KERNELS = ("fast", "patches", "cc_fused")
+KERNELS = ("fast", "patches", "cc_fused", "cc_propagate")
 
 launch_counts = {name: 0 for name in KERNELS}
 

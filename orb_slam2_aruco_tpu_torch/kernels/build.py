@@ -35,6 +35,7 @@ SIGNATURES = {
     "patches": ("extract_patches_launch", [P, P, P, P, I, I, I, I, P]),
     "cc_fused": ("cc_fused_launch",
                  [P, I, I, I, I, P, P, P, P, P, P, I, I, P]),
+    "cc_propagate": ("cc_propagate_launch", [P, P, I, I, I, I, I, I, P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

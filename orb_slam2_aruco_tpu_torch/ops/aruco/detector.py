@@ -1,11 +1,20 @@
-"""ArUco marker detector: the fused quad-proposal path.
+"""ArUco marker detector.
 
 Port of orb_slam2_aruco_tpu/ops/aruco/detector.py (reference
 aruco::MarkerDetector, SURVEY.md §2.2): adaptive threshold -> majority-vote
-downsample -> connected components + blob bboxes (kernel K3,
-ops/cc_fused.py) -> extremal-point quad corners -> fronto-parallel warp ->
-bit decode -> dictionary lookup -> border / duplicate filters, and the
-CORNER_LINES subpixel refinement.
+downsample -> quad proposal -> fronto-parallel warp -> bit decode ->
+dictionary lookup -> border / duplicate filters, and the CORNER_LINES
+subpixel refinement.
+
+The quad proposal has the JAX package's routes, chosen by `use_pallas_cc`
+in `detect_markers`:
+
+  * True: `quad_candidates_fused`, connected components + blob bboxes in
+    one pass (kernel K3, ops/cc_fused.py), blobs ranked by bbox area;
+  * False: `quad_candidates`, labels from `connected_components` (plain
+    PyTorch, as the JAX package leaves it to XLA), blobs ranked by their
+    subsampled pixel area. `quad_candidates(use_pallas_cc=True)` labels by
+    K4 sweeps (ops/cc_propagate.py) and pointer jumps instead.
 
 `sample_batched_mxu` keeps the reference's outputs, not its banded-matmul
 mechanism: the mip-level choice, the pooled pixel-centre convention and the
@@ -15,6 +24,7 @@ direct 4-tap bilinear gather from that window.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -25,6 +35,7 @@ from orb_slam2_aruco_tpu_torch.ops.aruco.dictionary import (
     get_dictionary,
 )
 from orb_slam2_aruco_tpu_torch.ops.cc_fused import cc_fused
+from orb_slam2_aruco_tpu_torch.ops.cc_propagate import cc_propagate
 from orb_slam2_aruco_tpu_torch.ops.image import box_filter
 from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
 
@@ -109,6 +120,123 @@ def quad_candidates_fused(binary, max_quads: int, min_area: float = 64.0,
     lab_flat = lab2d.reshape(-1)
     root_label = torch.where(valid, lab_flat[pos], -1)
     quads = _corners_from_membership(lab_flat, root_label, h, w)
+    return quads, vals, valid
+
+
+def _cummax(x, dim: int, reverse: bool):
+    if reverse:
+        return x.flip(dim).cummax(dim).values.flip(dim)
+    return x.cummax(dim).values
+
+
+def _seg_cummin_axis(lab, fg, sentinel: int, axis: int):
+    """Segmented cumulative min of `lab` within foreground runs along
+    `axis`, forward then backward, by a cummax over the packed key
+    run_id * (sentinel + 1) + (sentinel - lab) (int64 where int32 would
+    overflow)."""
+    n = lab.shape[axis]
+    offset = sentinel + 1
+    dt = torch.int64 if (n - 1) * offset + sentinel > 2**31 - 1 else torch.int32
+    shape = [1, 1]
+    shape[axis] = n
+    iota = torch.arange(n, dtype=dt, device=lab.device).reshape(shape)
+    iota = iota.expand(lab.shape)
+    reset = ~fg
+    out = lab
+    for reverse in (False, True):
+        pos = (n - 1) - iota if reverse else iota
+        s = _cummax(torch.where(reset, pos, -1), axis, reverse)
+        packed = s * offset + (sentinel - out.to(dt))
+        y = _cummax(packed, axis, reverse)
+        seg = sentinel - (y - s * offset)
+        out = torch.where(fg, seg.to(lab.dtype), out)
+    return out
+
+
+def pointer_jump(lab, sentinel: int):
+    """lab <- lab[lab] on the flat image (background stays sentinel)."""
+    lf = lab.reshape(-1)
+    tgt = lf[torch.clamp(lf, max=sentinel - 1).to(torch.int64)]
+    return torch.where(lf == sentinel, sentinel, tgt).reshape(lab.shape)
+
+
+def initial_labels(binary):
+    """Starting labels [H, W] int32: the flat index on foreground, the
+    sentinel H*W on background."""
+    h, w = binary.shape
+    flat = torch.arange(h * w, dtype=torch.int32,
+                        device=binary.device).reshape(h, w)
+    return torch.where(binary, flat, h * w)
+
+
+def connected_components(binary, iters: int, rounds: int | None = None):
+    """Min-label connected components on [H, W] bool -> [H, W] int32 labels
+    (background H*W). Each round: one 8-neighbour min step, segmented
+    row and column cumulative mins, one pointer jump; ceil(log2(iters)) + 1
+    rounds unless `rounds` is given."""
+    h, w = binary.shape
+    sentinel = h * w
+    labels = initial_labels(binary)
+    if rounds is None:
+        rounds = max(2, math.ceil(math.log2(max(2, iters))) + 1)
+    for _ in range(rounds):
+        p = torch.nn.functional.pad(labels[None], (1, 1, 1, 1),
+                                    value=sentinel)[0]
+        best = labels
+        for dy in (0, 1, 2):
+            for dx in (0, 1, 2):
+                if dy == 1 and dx == 1:
+                    continue
+                best = torch.minimum(best, p[dy:dy + h, dx:dx + w])
+        labels = torch.where(binary, best, sentinel)
+        labels = _seg_cummin_axis(labels, binary, sentinel, axis=1)
+        labels = _seg_cummin_axis(labels, binary, sentinel, axis=0)
+        labels = pointer_jump(labels, sentinel)
+    return labels
+
+
+def quad_candidates(binary, max_quads: int, min_area: float = 64.0,
+                    max_area_frac: float = 0.25, cc_iters: int = 0,
+                    use_pallas_cc: bool = False):
+    """Quad proposal from min-label connected components, blobs ranked by
+    pixel area (counted on a stride-s subsample above 40000 pixels). The
+    labels come from K4 sweeps + pointer jumps (use_pallas_cc=True) or from
+    `connected_components`. Returns (quads [Q, 4, 2], score [Q],
+    valid [Q])."""
+    h, w = binary.shape
+    P = h * w
+    dev = binary.device
+    cc_rounds = None
+    if cc_iters <= 0:
+        cc_rounds = 4
+        cc_iters = h + w
+    if use_pallas_cc:
+        k_steps = 16
+        labels2d = initial_labels(binary)
+        rounds = max(2, math.ceil(math.log2(max(2.0, cc_iters / k_steps))) + 1)
+        for _ in range(rounds):
+            labels2d = cc_propagate(labels2d, passes=1, k_steps=k_steps,
+                                    tile=128)
+            labels2d = pointer_jump(labels2d, P)
+    else:
+        labels2d = connected_components(binary, iters=cc_iters,
+                                        rounds=cc_rounds)
+    labels = labels2d.reshape(-1)
+    astride = max(1, int(round(math.sqrt(P / 32768.0)))) if P > 40000 else 1
+    sub = labels2d[::astride, ::astride].reshape(-1)
+    Ps = sub.shape[0]
+    ss = torch.sort(sub).values
+    left = torch.searchsorted(ss, ss, side="left")
+    right = torch.searchsorted(ss, ss, side="right")
+    area_run = (right - left).to(torch.float32) * float(astride * astride)
+    run_start = left == torch.arange(Ps, dtype=left.dtype, device=dev)
+    fg_run = ss < P
+    area_ok = (area_run >= min_area) & (area_run <= max_area_frac * P)
+    score = torch.where(run_start & fg_run & area_ok, area_run, 0.0)
+    vals, pos = stable_topk(score, max_quads)
+    valid = vals > 0
+    root_label = torch.where(valid, ss[pos], -1)
+    quads = _corners_from_membership(labels, root_label, h, w)
     return quads, vals, valid
 
 
@@ -241,23 +369,27 @@ def decode_quads(img, quads, qvalid, dict_name: str, border_cells: int = 1,
 def detect_markers(img, dict_name: str, max_quads: int = 64,
                    adaptive_win: int = 15, adaptive_c: float = 7.0,
                    min_area: float = 100.0, max_area_frac: float = 0.25,
-                   cell_px: int = 8, downsample: int = 1,
-                   refine: bool = True) -> DetectedMarkers:
+                   cell_px: int = 8, cc_iters: int = 0, downsample: int = 1,
+                   refine: bool = True,
+                   use_pallas_cc: bool = False) -> DetectedMarkers:
     """Full detection on a grayscale [H, W] float32 image (0..255), with the
     quad proposal at 1/downsample resolution (decode and refinement sample
-    the full-resolution image)."""
+    the full-resolution image): `quad_candidates_fused` (K3) when
+    use_pallas_cc, else `quad_candidates` on `connected_components`."""
     binary = adaptive_threshold(img, adaptive_win, adaptive_c)
     ds = downsample
     if ds > 1:
-        binary_s = downsample_majority(binary, ds)
+        binary = downsample_majority(binary, ds)
+    if use_pallas_cc:
         quads, _, qvalid = quad_candidates_fused(
-            binary_s, max_quads, min_area=min_area / (ds * ds),
+            binary, max_quads, min_area=min_area / (ds * ds),
             max_area_frac=max_area_frac)
-        quads = quads * float(ds) + (ds - 1) / 2.0
     else:
-        quads, _, qvalid = quad_candidates_fused(
-            binary, max_quads, min_area=min_area,
-            max_area_frac=max_area_frac)
+        quads, _, qvalid = quad_candidates(
+            binary, max_quads, min_area=min_area / (ds * ds),
+            max_area_frac=max_area_frac, cc_iters=cc_iters)
+    if ds > 1:
+        quads = quads * float(ds) + (ds - 1) / 2.0
     h, w = img.shape
     margin = 3.0
     inside = ((quads[..., 0] >= margin) & (quads[..., 0] <= w - 1 - margin)

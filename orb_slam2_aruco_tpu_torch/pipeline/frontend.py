@@ -3,7 +3,8 @@
 Port of orb_slam2_aruco_tpu/pipeline/frontend.py (reference Frame::Frame,
 src/Frame.cc:74-181). `make_frame` runs eagerly on the image's device; on a
 CUDA tensor its three kernels are K1 (FAST, 8 calls), K2 (patches, 8 calls)
-and K3 (connected components, 1 call).
+and K3 (connected components, 1 call; with aruco.use_pallas_cc=False the
+quad proposal runs plain connected components instead).
 """
 
 from __future__ import annotations
@@ -113,7 +114,8 @@ def make_frame(img, cam: Camera, cfg: SlamConfig) -> Frame:
         adaptive_win=acfg.adaptive_thresh_win,
         adaptive_c=acfg.adaptive_thresh_c,
         min_area=acfg.min_quad_side_px**2, cell_px=acfg.warp_cell_px,
-        downsample=acfg.detect_downsample, refine=False,
+        cc_iters=acfg.cc_iters, downsample=acfg.detect_downsample,
+        refine=False, use_pallas_cc=acfg.use_pallas_cc,
     )
     A = acfg.max_markers_per_frame
     _, order = stable_topk(det.valid, A)

@@ -10,12 +10,13 @@ localization slice runs (reference Tracking::Track, src/Tracking.cc:192-492):
   * TrackReferenceKeyFrame (Tracking.cc:910-982)-> track_vs_keyframe
   * TrackLocalMap (Tracking.cc:1242-1293)       -> track_local_map
   * the whole OK-state cascade                  -> track_full
+  * a chunk of localization frames              -> track_batch
 
 Every function runs eagerly on the state's device with fixed shapes. The
 JAX package's two `lax.cond`s in `_cascade_seed` (widened-window retry and
 reference-keyframe fallback) are host branches here: each reads one
 scalar (`host_sync`), counted in `SYNCS` so a run can report its host syncs
-per frame.
+per frame. `track_batch`'s extrapolate mode has none.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from orb_slam2_aruco_tpu_torch.geometry import camera as cam_mod
 from orb_slam2_aruco_tpu_torch.geometry.camera import Camera
 from orb_slam2_aruco_tpu_torch.geometry.lie import (
     se3_apply,
+    se3_compose,
     se3_inverse,
 )
 from orb_slam2_aruco_tpu_torch.ops import matching
@@ -37,7 +39,11 @@ from orb_slam2_aruco_tpu_torch.optim import pose_opt
 from orb_slam2_aruco_tpu_torch.optim.residuals import (
     marker_corner_points_world,
 )
-from orb_slam2_aruco_tpu_torch.pipeline.frontend import Frame, scale_sigma2
+from orb_slam2_aruco_tpu_torch.pipeline.frontend import (
+    Frame,
+    make_frame,
+    scale_sigma2,
+)
 from orb_slam2_aruco_tpu_torch.worldmap.state import MapState
 
 SYNCS = {"count": 0}
@@ -220,10 +226,12 @@ def _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
 def track_frame(state: MapState, frame: Frame, slots, Rcw0, tcw0,
                 last_uv, last_desc, last_obs, last_valid, last_octave,
                 last_angle, cam: Camera, cfg: SlamConfig,
-                search_radius: float, old=None) -> TrackResult:
+                search_radius: float, old=None,
+                seed_budget: bool = False) -> TrackResult:
     """Project the last frame's map points with the seed pose, window-match
     with the rotation histogram, optimize (TrackWithMotionModel /
-    TrackByAruco body)."""
+    TrackByAruco body). `seed_budget` trims the LM to seed_rounds x
+    seed_iters: the two-stage chunk's first-stage pose is only a seed."""
     pts, pvalid = _point_world_arrays(state, last_obs)
     pvalid = pvalid & last_valid
     p_cam = se3_apply(Rcw0[None], tcw0[None], pts)
@@ -243,8 +251,10 @@ def track_frame(state: MapState, frame: Frame, slots, Rcw0, tcw0,
     N = frame.kp_uv.shape[0]
     obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
                              torch.where(m.valid, last_obs, -1))
-    res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
-                             cfg, old)
+    res, obs_out = _optimize(
+        state, frame, slots, Rcw0, tcw0, obs_point, cam, cfg, old,
+        rounds=cfg.tracking.seed_rounds if seed_budget else None,
+        iters_per_round=cfg.tracking.seed_iters if seed_budget else None)
     return TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers,
                        m.valid.sum())
 
@@ -337,7 +347,7 @@ def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
 def _cascade_seed(state: MapState, frame: Frame, R_pred, t_pred, R_last,
                   t_last, last_uv, last_desc, last_obs, last_valid,
                   last_octave, last_angle, ref_kf, cam: Camera,
-                  cfg: SlamConfig):
+                  cfg: SlamConfig, seed_budget: bool = False):
     """Marker seed + motion-model tracking with the widened-window and
     reference-keyframe fallbacks (Tracking.cc:233-258). Returns (tr, slots,
     old, ok_a, need_ref)."""
@@ -349,18 +359,47 @@ def _cascade_seed(state: MapState, frame: Frame, R_pred, t_pred, R_last,
     t0 = torch.where(ok_a, t_a, t_pred)
     last = (last_uv, last_desc, last_obs, last_valid, last_octave, last_angle)
     tr = track_frame(state, frame, slots, R0, t0, *last, cam, cfg,
-                     search_radius=cfg.matcher.search_radius_motion, old=old)
+                     search_radius=cfg.matcher.search_radius_motion, old=old,
+                     seed_budget=seed_budget)
     # widened-window retry (TrackWithMotionModel, Tracking.cc:1010-1015)
     if host_sync(tr.n_matches < 20):
         tr = track_frame(state, frame, slots, R0, t0, *last, cam, cfg,
                          search_radius=2.0 * cfg.matcher.search_radius_motion,
-                         old=old)
+                         old=old, seed_budget=seed_budget)
     need_ref = tr.n_inliers < cfg.tracking.min_inliers_track
     if host_sync(need_ref):
         # TrackReferenceKeyFrame seeds from the LAST pose
         tr = track_vs_keyframe(state, frame, slots, ref_kf, R_last, t_last,
                                cam, cfg, old=old)
     return tr, slots, old, ok_a, need_ref
+
+
+def _finish(state: MapState, frame: Frame, tr, n_first, slots, old, ok_a,
+            need_ref, ref_kf, best_kf, vis, found) -> FullTrackResult:
+    """FullTrackResult and its ctrl from a final local-map track `tr`: the
+    NeedNewKeyFrame inputs (reference-keyframe tracked-point counts at
+    minObs 3 and 2, Tracking.cc:1323-1329) on the updated reference
+    keyframe."""
+    any_new = (frame.mk_good & frame.mk_valid & (slots < 0)).any()
+    ref_kf = torch.where(best_kf >= 0, best_kf, ref_kf)
+    ref_obs = state.kf_obs_point[ref_kf]
+    ref_obs_safe = torch.clamp(ref_obs, min=0)
+    ref_pt_ok = (ref_obs >= 0) & state.pt_valid[ref_obs_safe]
+    obs_count = (state.pt_obs_kf & state.kf_valid[None, :]).sum(dim=1)
+    ref_cnt = obs_count[ref_obs_safe]
+    n_ref3 = (ref_pt_ok & (ref_cnt >= 3)).sum()
+    n_ref2 = (ref_pt_ok & (ref_cnt >= 2)).sum()
+    f = lambda x: x.to(torch.float32).reshape(-1)  # noqa: E731
+    ctrl = torch.cat([
+        f(tr.n_inliers), f(n_first), f(ok_a), f(need_ref), f(any_new),
+        f(tr.Rcw), f(tr.tcw), f(n_ref3), f(n_ref2), f(ref_kf),
+    ])
+    return FullTrackResult(
+        Rcw=tr.Rcw, tcw=tr.tcw, obs_point=tr.obs_point,
+        n_inliers=tr.n_inliers, n_first_stage=n_first,
+        used_aruco=ok_a, used_ref_kf=need_ref, slots=slots, old_flags=old,
+        any_new_marker=any_new, pt_visible=vis, pt_found=found, ctrl=ctrl,
+    )
 
 
 def _cascade_refine(state: MapState, frame: Frame, tr, slots, old, ok_a,
@@ -373,26 +412,19 @@ def _cascade_refine(state: MapState, frame: Frame, tr, slots, old, ok_a,
     tr2, (vis, found) = track_local_map(state, frame, slots, tr.Rcw, tr.tcw,
                                         tr.obs_point, cam, cfg, old=old,
                                         pt_candidates=pt_local)
-    any_new = (frame.mk_good & frame.mk_valid & (slots < 0)).any()
-    ref_kf = torch.where(best_kf >= 0, best_kf, ref_kf)
-    ref_obs = state.kf_obs_point[ref_kf]
-    ref_obs_safe = torch.clamp(ref_obs, min=0)
-    ref_pt_ok = (ref_obs >= 0) & state.pt_valid[ref_obs_safe]
-    obs_count = (state.pt_obs_kf & state.kf_valid[None, :]).sum(dim=1)
-    ref_cnt = obs_count[ref_obs_safe]
-    n_ref3 = (ref_pt_ok & (ref_cnt >= 3)).sum()
-    n_ref2 = (ref_pt_ok & (ref_cnt >= 2)).sum()
-    f = lambda x: x.to(torch.float32).reshape(-1)  # noqa: E731
-    ctrl = torch.cat([
-        f(tr2.n_inliers), f(tr.n_inliers), f(ok_a), f(need_ref), f(any_new),
-        f(tr2.Rcw), f(tr2.tcw), f(n_ref3), f(n_ref2), f(ref_kf),
-    ])
-    return FullTrackResult(
-        Rcw=tr2.Rcw, tcw=tr2.tcw, obs_point=tr2.obs_point,
-        n_inliers=tr2.n_inliers, n_first_stage=tr.n_inliers,
-        used_aruco=ok_a, used_ref_kf=need_ref, slots=slots, old_flags=old,
-        any_new_marker=any_new, pt_visible=vis, pt_found=found, ctrl=ctrl,
-    )
+    return _finish(state, frame, tr2, tr.n_inliers, slots, old, ok_a,
+                   need_ref, ref_kf, best_kf, vis, found)
+
+
+def _result_from_track(state: MapState, frame: Frame, tr, slots, old, ok_a,
+                       need_ref, ref_kf, cfg: SlamConfig, pt_visible,
+                       pt_found) -> FullTrackResult:
+    """FullTrackResult of an already final local-map track, without a
+    second search (extrapolate mode with loc_extrap_passes=1)."""
+    _, best_kf = local_point_mask(state, tr.obs_point,
+                                  cfg.tracking.max_local_keyframes)
+    return _finish(state, frame, tr, tr.n_inliers, slots, old, ok_a,
+                   need_ref, ref_kf, best_kf, pt_visible, pt_found)
 
 
 def track_full(state: MapState, frame: Frame, R_pred, t_pred, R_last, t_last,
@@ -406,3 +438,124 @@ def track_full(state: MapState, frame: Frame, R_pred, t_pred, R_last, t_last,
         last_obs, last_valid, last_octave, last_angle, ref_kf, cam, cfg)
     return _cascade_refine(state, frame, tr, slots, old, ok_a, need_ref,
                            ref_kf, cam, cfg)
+
+
+# ---------------------------------------------------------------------------
+# chunked localization
+# ---------------------------------------------------------------------------
+
+
+def _chunk_result(state: MapState, frames, outs, R_last, t_last,
+                  cfg: SlamConfig):
+    """(ctrls [B, 20], carry) of a chunk whose frames were all tracked
+    against the same map state: per-frame visible/found deltas summed, the
+    last frame's context, the velocity of the last two poses."""
+    vis = state.pt_visible + torch.stack(
+        [o.pt_visible - state.pt_visible for o in outs]).sum(dim=0)
+    found = state.pt_found + torch.stack(
+        [o.pt_found - state.pt_found for o in outs]).sum(dim=0)
+    last, lastf = outs[-1], frames[-1]
+    if len(outs) >= 2:
+        R_prev, t_prev = outs[-2].Rcw, outs[-2].tcw
+    else:
+        R_prev, t_prev = R_last, t_last
+    vR, vt = se3_compose(last.Rcw, last.tcw, *se3_inverse(R_prev, t_prev))
+    ok_last = last.n_inliers >= cfg.tracking.min_matches_local_map
+    carry = (last.Rcw, last.tcw, vR, vt, ok_last, lastf.kp_uv, lastf.desc,
+             last.obs_point, lastf.kp_valid, lastf.kp_octave, lastf.kp_angle,
+             vis, found)
+    return torch.stack([o.ctrl for o in outs]), carry
+
+
+def track_batch(state: MapState, imgs, R_last, t_last, vel_R, vel_t, has_vel,
+                last_uv, last_desc, last_obs, last_valid, last_octave,
+                last_angle, ref_kf, cam: Camera, cfg: SlamConfig):
+    """Localization-mode tracking of a chunk of consecutive frames
+    imgs [B, H, W] (reference localization pass, mono_cvcam.cc:183-235).
+    Returns (ctrls [B, 20] in the FullTrackResult.ctrl layout, carry =
+    (R, t, vel_R, vel_t, ok, kp_uv, desc, obs_point, kp_valid, kp_octave,
+    kp_angle, pt_visible, pt_found) of the chunk's last frame). has_vel is a
+    0-d bool tensor. The frames are built one by one (make_frame takes one
+    image); the modes are the JAX package's:
+
+      * extrapolate (loc_two_stage, loc_seed_mode "extrapolate"): every
+        seed is the velocity composed i+1 times onto the last pose, or an
+        absolute marker pose where one passes loc_seed_marker_err; each
+        frame matches the map directly at loc_extrap_radius_scale x the
+        radius, then (loc_extrap_passes >= 2) one more local-map refine.
+        No host sync.
+      * two-stage (loc_two_stage): the motion-model cascade in sequence
+        with a trimmed LM, then every frame's local-map refine against the
+        chunk's input map state. Two host branches per frame, as
+        `_cascade_seed` has.
+      * sequential: `track_full` frame after frame, each on the previous
+        frame's visible/found counts.
+    """
+    frames = [make_frame(im, cam, cfg) for im in imgs]
+    tcfg = cfg.tracking
+    last = (last_uv, last_desc, last_obs, last_valid, last_octave, last_angle)
+    if tcfg.loc_two_stage and tcfg.loc_seed_mode == "extrapolate":
+        outs = []
+        Rp, tp = R_last, t_last
+        for frame in frames:
+            Rp, tp = se3_compose(vel_R, vel_t, Rp, tp)
+            R_seed = torch.where(has_vel, Rp, R_last)
+            t_seed = torch.where(has_vel, tp, t_last)
+            slots = bind_markers(state, frame)
+            # localization against a final map: no marker counts as old
+            old = torch.zeros_like(slots, dtype=torch.bool)
+            ok_a, R_a, t_a, _ = aruco_pose_candidate(
+                state, frame, slots, cam, cfg, old=old,
+                err_th=tcfg.loc_seed_marker_err)
+            R0 = torch.where(ok_a, R_a, R_seed)
+            t0 = torch.where(ok_a, t_a, t_seed)
+            no_obs = torch.full_like(frame.kp_octave, -1)
+            tr, (vis, found) = track_local_map(
+                state, frame, slots, R0, t0, no_obs, cam, cfg, old=old,
+                radius_scale=tcfg.loc_extrap_radius_scale)
+            need_ref = tr.n_inliers < tcfg.min_inliers_track
+            if tcfg.loc_extrap_passes <= 1:
+                outs.append(_result_from_track(state, frame, tr, slots, old,
+                                               ok_a, need_ref, ref_kf, cfg,
+                                               vis, found))
+            else:
+                outs.append(_cascade_refine(state, frame, tr, slots, old,
+                                            ok_a, need_ref, ref_kf, cam, cfg))
+        return _chunk_result(state, frames, outs, R_last, t_last, cfg)
+
+    Rl, tl, vR, vt, hv = R_last, t_last, vel_R, vel_t, has_vel
+    if tcfg.loc_two_stage:
+        seeds = []
+        for frame in frames:
+            Rp, tp = se3_compose(vR, vt, Rl, tl)
+            tr, slots, old, ok_a, need_ref = _cascade_seed(
+                state, frame, torch.where(hv, Rp, Rl), torch.where(hv, tp, tl),
+                Rl, tl, *last, ref_kf, cam, cfg, seed_budget=True)
+            vR, vt = se3_compose(tr.Rcw, tr.tcw, *se3_inverse(Rl, tl))
+            # a mid-chunk failure falls back to the last pose, not to a
+            # garbage constant-velocity seed
+            hv = tr.n_inliers >= tcfg.min_matches_local_map
+            Rl, tl = tr.Rcw, tr.tcw
+            last = (frame.kp_uv, frame.desc, tr.obs_point, frame.kp_valid,
+                    frame.kp_octave, frame.kp_angle)
+            seeds.append((tr, slots, old, ok_a, need_ref))
+        outs = [_cascade_refine(state, frame, *seed, ref_kf, cam, cfg)
+                for frame, seed in zip(frames, seeds)]
+        return _chunk_result(state, frames, outs, R_last, t_last, cfg)
+
+    st = state
+    ctrls = []
+    for frame in frames:
+        Rp, tp = se3_compose(vR, vt, Rl, tl)
+        out = track_full(st, frame, torch.where(hv, Rp, Rl),
+                         torch.where(hv, tp, tl), Rl, tl, *last, ref_kf, cam,
+                         cfg)
+        vR, vt = se3_compose(out.Rcw, out.tcw, *se3_inverse(Rl, tl))
+        hv = out.n_inliers >= tcfg.min_matches_local_map
+        Rl, tl = out.Rcw, out.tcw
+        last = (frame.kp_uv, frame.desc, out.obs_point, frame.kp_valid,
+                frame.kp_octave, frame.kp_angle)
+        st = st._replace(pt_visible=out.pt_visible, pt_found=out.pt_found)
+        ctrls.append(out.ctrl)
+    carry = (Rl, tl, vR, vt, hv, *last, st.pt_visible, st.pt_found)
+    return torch.stack(ctrls), carry

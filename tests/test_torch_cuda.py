@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from orb_slam2_aruco_tpu_torch import kernels
-from orb_slam2_aruco_tpu_torch.ops import cc_fused, fast, orb
+from orb_slam2_aruco_tpu_torch.kernels import build
+from orb_slam2_aruco_tpu_torch.ops import cc_fused, cc_propagate, fast, orb
+
+torch.set_num_threads(1)    # as in test_torch_slice.py: small CPU tensors
 
 T_HI, T_LO = 20.0, 7.0
 
@@ -58,6 +61,13 @@ def spiral(n=64):
                 y, x = y + dy, x + dx
             dy, dx = dx, -dy
         step += 2
+
+
+def init_labels(binary):
+    """K4's input: flat index on foreground, the sentinel H*W elsewhere."""
+    h, w = binary.shape
+    return np.where(binary, np.arange(h * w).reshape(h, w),
+                    h * w).astype(np.int32)
 
 
 @pytest.fixture
@@ -103,11 +113,44 @@ def test_cc_cuda_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "spiral", "marker_rings"])
+def test_cc_propagate_cuda_matches_plain(cuda_device, case):
+    rng = np.random.default_rng(7)
+    if case == "random":
+        binary = rng.uniform(size=(270, 480)) < 0.45
+    elif case == "spiral":
+        binary = spiral(200)
+    else:
+        binary = rings(rng, 270, 480)
+    labels = torch.as_tensor(init_labels(binary), device=cuda_device)
+    for passes in (1, 3):
+        got = cc_propagate.cc_propagate_cuda(labels, passes, 16, 128)
+        want = cc_propagate.cc_propagate_torch(labels, passes, 16, 128)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cc_propagate_raises_without_its_library(cuda_device, monkeypatch):
+    """On a CUDA tensor the dispatcher launches the kernel or raises; it
+    never falls back to the plain version."""
+    def missing(name):
+        raise RuntimeError(f"CUDA kernel build failed: {name}")
+
+    monkeypatch.setattr(build, "launcher", missing)
+    labels = torch.as_tensor(init_labels(spiral(64)), device=cuda_device)
+    with pytest.raises(RuntimeError, match="build failed"):
+        cc_propagate.cc_propagate(labels, 1, 16, 128)
+
+
+@pytest.mark.cuda
 def test_each_cuda_launch_is_counted_once(cuda_device):
     img = torch.rand((64, 160), device=cuda_device) * 255
     kernels.reset_launch_counts()
     fast.fast_score_nms(img, T_HI, T_LO)
     orb.extract_patches(img, torch.tensor([[40.0, 30.0]], device=cuda_device))
     cc_fused.cc_fused(img > 128)
+    labels = torch.as_tensor(init_labels(spiral(64)), device=cuda_device)
+    cc_propagate.cc_propagate(labels, 1, 16, 128)     # one sweep, one launch
     fast.fast_score_nms_torch(img, T_HI, T_LO)       # plain: not counted
-    assert kernels.launch_counts == {"fast": 1, "patches": 1, "cc_fused": 1}
+    assert kernels.launch_counts == {"fast": 1, "patches": 1, "cc_fused": 1,
+                                     "cc_propagate": 1}

@@ -255,7 +255,7 @@ def test_quad_proposal_and_decode_match_jax(small_frames, ds):
                                 downsample=ds, refine=True,
                                 use_pallas_cc=True)
     det_t = tdet.detect_markers(_t(img), "ARUCO", cell_px=3, downsample=ds,
-                                refine=True)
+                                refine=True, use_pallas_cc=True)
     np.testing.assert_array_equal(_n(det_t.ids), np.asarray(det_j.ids))
     ok = np.asarray(det_j.valid)
     assert sorted(np.asarray(det_j.ids)[ok]) == [3, 17, 42, 99]
@@ -305,6 +305,30 @@ def test_make_frame_matches_jax(small_frames):
         assert bj @ bt / (np.linalg.norm(bj) * np.linalg.norm(bt)) >= 0.99
 
 
+def test_make_frame_unfused_quads_match_jax(small_frames):
+    """aruco.use_pallas_cc=False: both packages propose quads from plain
+    connected components ranked by pixel area (not K3's bbox area), so the
+    marker slots agree: ids, validity and IPPE gate exactly, corners within
+    0.05 px."""
+    cfg, tcfg, imgs = small_frames
+    cfg = cfg.replace(aruco=dataclasses.replace(cfg.aruco,
+                                                use_pallas_cc=False))
+    tcfg = tcfg.replace(aruco=dataclasses.replace(tcfg.aruco,
+                                                  use_pallas_cc=False))
+    jc = jcam.camera_from_config(cfg.camera)
+    tc = tcam.camera_from_config(tcfg.camera)
+    for img in imgs:
+        fj = jfrontend.make_frame(jnp.asarray(img), jc, cfg)
+        ft = tfrontend.make_frame(_t(img), tc, tcfg)
+        for f in ("mk_ids", "mk_valid", "mk_good"):
+            np.testing.assert_array_equal(_n(getattr(ft, f)),
+                                          np.asarray(getattr(fj, f)))
+        ok = np.asarray(fj.mk_valid)
+        assert ok.sum() >= 3
+        np.testing.assert_allclose(_n(ft.mk_corners)[ok],
+                                   np.asarray(fj.mk_corners)[ok], atol=0.05)
+
+
 def test_render_view_is_bit_identical():
     cfg, world, _, loc = SETUPS["small"]()
     ij, gj = render_frames(jsyn, world, cfg.camera, loc[:3])
@@ -328,10 +352,12 @@ def test_port_imports_no_jax():
         "import orb_slam2_aruco_tpu_torch\n"
         "from orb_slam2_aruco_tpu_torch.pipeline import system, frontend, "
         "tracking\n"
-        "from orb_slam2_aruco_tpu_torch.io import checkpoint, synthetic, "
-        "trajectory\n"
+        "from orb_slam2_aruco_tpu_torch.io import checkpoint, ingest, "
+        "synthetic, trajectory\n"
         "from orb_slam2_aruco_tpu_torch.kernels import build\n"
-        "from orb_slam2_aruco_tpu_torch.ops import fast, orb, cc_fused\n"
+        "from orb_slam2_aruco_tpu_torch.ops import fast, orb, cc_fused, "
+        "cc_propagate\n"
+        "from orb_slam2_aruco_tpu_torch.ops.aruco import detector\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('orb_slam2_aruco_tpu.')"
         " or m == 'orb_slam2_aruco_tpu']\n"

@@ -16,10 +16,18 @@ reference files the port is held to (orb_slam2_aruco_tpu_torch/data/):
                  mid-points of the sweep, their ground truth and the JAX
                  run's ATE. chip_smoke.py holds the port to it on the card.
 
-Each file is a valid map checkpoint (the JAX and the port's load_map read
-it) with the reference arrays under `ref_*` keys. Regenerate with
+`add_serving_reference` adds, to both files, the JAX package's K4 quad
+proposal on a few of those frames (`ref_quad_*`) and a `localize_stream`
+run (`ref_stream_*`: chunk 64 over 128 frames in ref_full, the bench's
+serving form; chunk 4 with a rewind in ref_small), and to ref_small
+`track_batch` in each of its modes (`ref_tb_*`).
 
-    python tests/test_torch_slice.py --regen [small|full]
+Each file is a valid map checkpoint (the JAX and the port's load_map read
+it) with the reference arrays under `ref_*` keys. Regenerate everything
+with `--regen`, or only the serving keys of the existing maps with
+`--serving`:
+
+    python tests/test_torch_slice.py --regen|--serving [small|full]
 """
 
 from __future__ import annotations
@@ -38,6 +46,13 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 import torch  # noqa: E402
+
+# One intra-op thread for the port's tests (this module is imported by the
+# other test_torch_* files that hold the port to JAX): their tensors are
+# small, and the suite runs its files in parallel workers, where torch's
+# default of one thread per core oversubscribes the cores and every small
+# op stalls at the thread pool's barrier.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.path.join(REPO, "orb_slam2_aruco_tpu_torch", "data")
@@ -174,15 +189,209 @@ def build_reference_data(which=("small", "full"), out_dir=DATA_DIR):
               f"{len(ok)}, keyframes {int(arrays['kf_valid'].sum())}, "
               f"points {int(arrays['pt_valid'].sum())}, ATE {ate:.5f} m",
               flush=True)
+    add_serving_reference(which, out_dir)
+
+
+# ---------------------------------------------------------------------------
+# the chunked serving form and the K4 quad proposal (ref_stream_*, ref_tb_*,
+# ref_quad_* keys)
+# ---------------------------------------------------------------------------
+
+# localize_stream runs held to the JAX package: after load_map and one
+# track_monocular on reference frame 0 (relocalization), the frames of
+# `order` (reference frame indices, -1 = a blank grey frame) are served in
+# chunks. "full" is bench.py's serving form (bench.py:176-196): chunk 64,
+# two chunks in flight, 128 frames out and back over the 32 frames.
+# "small" holds one blank frame: its chunk loses tracking and the stream
+# rewinds through the per-frame path.
+STREAM_SPECS = {
+    "small": dict(chunk=4, depth=2, loc_seed_mode="extrapolate",
+                  loc_extrap_passes=1,
+                  order=[0, 1, 2, 3, 4, 5, -1, 6, 7, 7, 6, 5, 4, 3, 2, 1, 0]),
+    "full": dict(chunk=64, depth=2, loc_seed_mode="extrapolate",
+                 loc_extrap_passes=1, order=[k % 32 for k in range(128)]),
+}
+
+# track_batch modes: (loc_seed_mode, loc_extrap_passes, loc_two_stage)
+TB_MODES = {
+    "extrap1": ("extrapolate", 1, True),
+    "extrap2": ("extrapolate", 2, True),
+    "two_stage": ("scan", 2, True),
+    "sequential": ("scan", 2, False),
+}
+TB_CARRY = ("R", "t", "vel_R", "vel_t", "ok", "kp_uv", "desc", "obs",
+            "kp_valid", "kp_octave", "kp_angle", "pt_visible", "pt_found")
+TB_INPUTS = ("R_last", "t_last", "vel_R", "vel_t", "last_uv", "last_desc",
+             "last_obs", "last_valid", "last_octave", "last_angle", "ref_kf",
+             "pt_visible", "pt_found")
+
+# reference frames whose K4 quad proposal is recorded
+QUAD_FRAMES = {"small": [0, 4], "full": [0, 8, 16, 24]}
+
+
+def serving_cfg(cfg, loc_seed_mode, loc_extrap_passes, loc_two_stage=True):
+    """`cfg` with the localization serving mode set (either package's
+    SlamConfig)."""
+    return cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, loc_seed_mode=loc_seed_mode,
+        loc_extrap_passes=loc_extrap_passes, loc_two_stage=loc_two_stage))
+
+
+def stream_frames(imgs, order):
+    """[(uint8 frame, ts)] of a stream spec's order (-1 = blank grey)."""
+    blank = np.full(imgs[0].shape, 128, np.uint8)
+    return [(blank if k < 0 else imgs[k], 1.0 + j / 30.0)
+            for j, k in enumerate(order)]
+
+
+def half_res_binary(img, acfg):
+    """The quad proposal's input in either package's convention: adaptive
+    threshold, then the majority-vote downsample (numpy bool)."""
+    from orb_slam2_aruco_tpu.ops.aruco import detector as jdet
+
+    b = np.asarray(jdet.adaptive_threshold(
+        jax.numpy.asarray(np.asarray(img, np.float32)),
+        acfg.adaptive_thresh_win, acfg.adaptive_thresh_c))
+    ds = acfg.detect_downsample
+    if ds > 1:
+        h, w = (b.shape[0] // ds) * ds, (b.shape[1] // ds) * ds
+        b = (b[:h, :w].reshape(h // ds, ds, w // ds, ds).sum(axis=(1, 3))
+             * 2 >= ds * ds)
+    return b
+
+
+def jax_quads_k4(binary, acfg):
+    """JAX quad_candidates(use_pallas_cc=True) with K4 in interpret mode
+    (it has no CPU path otherwise); the JAX package is not changed."""
+    import functools
+    from unittest import mock
+
+    from orb_slam2_aruco_tpu.ops import pallas_cc
+    from orb_slam2_aruco_tpu.ops.aruco import detector as jdet
+
+    ds = acfg.detect_downsample
+    interp = functools.partial(pallas_cc.cc_propagate_pallas, interpret=True)
+    with mock.patch.object(pallas_cc, "cc_propagate_pallas", interp):
+        q, s, v = jdet.quad_candidates(
+            jax.numpy.asarray(binary), acfg.max_quad_candidates,
+            min_area=acfg.min_quad_side_px**2 / ds**2,
+            cc_iters=acfg.cc_iters, use_pallas_cc=True)
+    return np.asarray(q), np.asarray(s), np.asarray(v)
+
+
+def _record_stream(cfg, path, imgs, spec):
+    from orb_slam2_aruco_tpu.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem, TrackingState
+
+    system = SlamSystem(serving_cfg(cfg, spec["loc_seed_mode"],
+                                    spec["loc_extrap_passes"]))
+    system.load_map(path)
+    system.track_monocular(imgs[0], ts=0.0)
+    if system.state is not TrackingState.OK:
+        raise RuntimeError("the stream's first frame did not relocalize")
+    src = StagedSource(stream_frames(imgs, spec["order"]),
+                       batch=spec["chunk"])
+    fid, ok, Rs, ts = [], [], [], []
+    for f, _, p in system.localize_stream(src, chunk=spec["chunk"],
+                                          depth=spec["depth"]):
+        fid.append(f)
+        ok.append(p is not None)
+        R, t = p if p is not None else (np.eye(3), np.zeros(3))
+        Rs.append(np.asarray(R, np.float32))
+        ts.append(np.asarray(t, np.float32))
+    spec_json = {k: v for k, v in spec.items() if k != "order"}
+    return dict(ref_stream_spec=np.asarray(json.dumps(spec_json)),
+                ref_stream_order=np.asarray(spec["order"], np.int32),
+                ref_stream_fid=np.asarray(fid, np.int32),
+                ref_stream_ok=np.asarray(ok), ref_stream_R=np.stack(Rs),
+                ref_stream_t=np.stack(ts),
+                ref_stream_reloc=np.asarray(system.stats["reloc"]))
+
+
+def _record_track_batch(cfg, path, imgs):
+    """JAX track_batch in each mode on reference frames 2-5 (chunk 4), from
+    the tracking state after frames 0 (relocalization) and 1."""
+    import jax.numpy as jnp
+
+    from orb_slam2_aruco_tpu.pipeline import tracking as jtrack
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem, TrackingState
+
+    system = SlamSystem(cfg)
+    system.load_map(path)
+    for i in range(2):
+        system.track_monocular(imgs[i], ts=i / 30.0)
+    if system.state is not TrackingState.OK or system.vel is None:
+        raise RuntimeError("track_batch reference: frames 0-1 did not track")
+    lf = system.last_frame
+    ins = dict(R_last=system.last_pose[0], t_last=system.last_pose[1],
+               vel_R=system.vel[0], vel_t=system.vel[1], last_uv=lf.kp_uv,
+               last_desc=lf.desc, last_obs=system.last_obs,
+               last_valid=lf.kp_valid, last_octave=lf.kp_octave,
+               last_angle=lf.kp_angle, ref_kf=jnp.asarray(system.ref_kf),
+               pt_visible=system.map.pt_visible,
+               pt_found=system.map.pt_found)
+    out = {f"ref_tb_in_{k}": np.asarray(v) for k, v in ins.items()}
+    stack = jnp.asarray(np.stack(imgs[2:6]))
+    for name, mode in TB_MODES.items():
+        ctrls, carry = jtrack.track_batch(
+            system.map, stack, ins["R_last"], ins["t_last"], ins["vel_R"],
+            ins["vel_t"], jnp.asarray(True), *[ins[k] for k in TB_INPUTS[4:11]],
+            system.cam, serving_cfg(cfg, *mode))
+        out[f"ref_tb_{name}_ctrl"] = np.asarray(ctrls)
+        for k, v in zip(TB_CARRY, carry):
+            out[f"ref_tb_{name}_{k}"] = np.asarray(v)
+        print(f"  track_batch {name}: n_inliers "
+              f"{np.asarray(ctrls)[:, 0].tolist()}", flush=True)
+    return out
+
+
+def add_serving_reference(which=("small", "full"), out_dir=DATA_DIR):
+    """Record, into the existing ref_<which>.npz, the JAX package's
+    localize_stream run (STREAM_SPECS), its K4 quad proposal on QUAD_FRAMES
+    and (small only) track_batch in each mode (TB_MODES)."""
+    import time
+
+    from orb_slam2_aruco_tpu.io import synthetic as jsyn
+
+    for name in which:
+        t0 = time.perf_counter()
+        path = os.path.join(out_dir, f"ref_{name}.npz")
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files
+                      if not k.startswith(("ref_stream_", "ref_tb_",
+                                           "ref_quad_"))}
+        cfg, world_kw, _, loc_params = SETUPS[name]()
+        imgs, _ = render_frames(jsyn, world_kw, cfg.camera, loc_params,
+                                cfg.aruco.dictionary)
+        quads = [jax_quads_k4(half_res_binary(imgs[i], cfg.aruco), cfg.aruco)
+                 for i in QUAD_FRAMES[name]]
+        arrays.update(
+            ref_quad_frames=np.asarray(QUAD_FRAMES[name], np.int32),
+            ref_quad_q=np.stack([q[0] for q in quads]),
+            ref_quad_score=np.stack([q[1] for q in quads]),
+            ref_quad_valid=np.stack([q[2] for q in quads]))
+        print(f"{name}: quads {[int(q[2].sum()) for q in quads]} valid, "
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
+        if name == "small":
+            arrays.update(_record_track_batch(cfg, path, imgs))
+        arrays.update(_record_stream(cfg, path, imgs, STREAM_SPECS[name]))
+        np.savez_compressed(path, **arrays)
+        print(f"{path}: stream fids {arrays['ref_stream_fid'].tolist()} ok "
+              f"{arrays['ref_stream_ok'].astype(int).tolist()}, "
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
 if __name__ == "__main__":
-    if "--regen" not in sys.argv:
-        sys.exit("usage: python tests/test_torch_slice.py --regen "
+    if "--regen" not in sys.argv and "--serving" not in sys.argv:
+        sys.exit("usage: python tests/test_torch_slice.py --regen|--serving "
                  "[small|full]")
     sys.path.insert(0, REPO)
-    picked = [a for a in sys.argv[1:] if a in SETUPS]
-    build_reference_data(tuple(picked) or ("small", "full"))
+    picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
+                                                               "full")
+    if "--regen" in sys.argv:
+        build_reference_data(picked)
+    else:
+        add_serving_reference(picked)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +435,7 @@ def test_port_localization_matches_recorded_jax_run():
     path, ref = _load_ref("small")
     cfg, imgs, gt = _port_frames(ref)
     np.testing.assert_allclose(np.stack([g[0] for g in gt]), ref["ref_gt_R"])
-    system = SlamSystem(cfg)
+    system = SlamSystem(cfg, device="cpu")
     system.load_map(path)
     assert system.state is TrackingState.LOST
     for i, img in enumerate(imgs):
@@ -279,7 +488,7 @@ def test_full_reference_file_is_a_complete_recording():
     from orb_slam2_aruco_tpu_torch.io import checkpoint
 
     path, ref = _load_ref("full")
-    state = checkpoint.load_map(path)
+    state = checkpoint.load_map(path, device="cpu")
     cfg, imgs, _ = _port_frames(ref)
     assert state.kf_desc.shape == (cfg.map.max_keyframes,
                                    cfg.orb.num_features, 8)
@@ -318,6 +527,31 @@ def test_slam_mode_is_not_ported_yet():
     from orb_slam2_aruco_tpu_torch.config import SlamConfig
     from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
 
-    system = SlamSystem(SlamConfig())
+    system = SlamSystem(SlamConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 2"):
         system.track_monocular(np.zeros((540, 960), np.uint8), ts=0.0)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """SlamSystem, checkpoint.load_map and StagedSource run on the card
+    unless told otherwise, and raise (no CPU fallback) without one."""
+    import inspect
+
+    import orb_slam2_aruco_tpu_torch as pkg
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+    from orb_slam2_aruco_tpu_torch.io import checkpoint
+    from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    for fn in (SlamSystem.__init__, checkpoint.load_map,
+               StagedSource.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(pkg._torch.cuda, "is_available", lambda: False)
+    path, _ = _load_ref("small")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        SlamSystem(SlamConfig())
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        checkpoint.load_map(path)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        StagedSource([])
+    assert SlamSystem(SlamConfig(), device="cpu").device.type == "cpu"

@@ -76,7 +76,8 @@ def test_load_map_matches_jax(tmp_path, version):
         arrays["__version__"] = np.asarray(version)
         path = str(tmp_path / f"v{version}.npz")
         np.savez_compressed(path, **arrays)
-    _assert_states_equal(tckpt.load_map(path), jckpt.load_map(path))
+    _assert_states_equal(tckpt.load_map(path, device="cpu"),
+                         jckpt.load_map(path))
     e_t, e_j = tckpt.load_extras(path), jckpt.load_extras(path)
     assert e_t.keys() == e_j.keys()
 
@@ -179,7 +180,8 @@ def ctx():
     return dict(cfg=cfg, tcfg=tcfg, jc=jc,
                 tc=tcam.camera_from_numpy({k: np.asarray(v) for k, v in
                                            jc._asdict().items()}),
-                jmap=jckpt.load_map(REF_SMALL), tmap=tckpt.load_map(REF_SMALL),
+                jmap=jckpt.load_map(REF_SMALL),
+                tmap=tckpt.load_map(REF_SMALL, device="cpu"),
                 jframes=jframes, tframes=tframes)
 
 
