@@ -13,13 +13,18 @@ detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
               per source, all at once).
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it on a rendered 960x540 frame: K1
-              FAST on the 8 pyramid levels, K2 patches at each level's
-              keypoint quota, K3 connected components and K4 one label
-              sweep (initial labels and labels after one round) on the
-              270x480 half-resolution binary. Outputs must be equal (K1: in
-              the unmasked interior). Median times from CUDA events, beside
-              each kernel's bound and, where one PyTorch call computes the
-              same function, that call's time.
+              FAST on the 8 pyramid levels, K2 patches of all 8 levels at
+              their keypoint quotas (one launch), K3 connected components
+              on the 270x480 half-resolution binary and on the 540x960
+              full-resolution one (the default detect_downsample=1), K4
+              one label sweep (initial labels and labels after one round)
+              at 270x480. Outputs must be equal (K1: in the unmasked
+              interior). Median times from CUDA events, beside each
+              kernel's bound and, where one PyTorch call computes the same
+              function, that call's time; for K2 and K3 also the kernel
+              alone (events around the bare launch), and a torch.profiler
+              count that must show one device kernel per K2 frame and per
+              K3 call.
   4. slice    per-frame localization: SlamSystem.load_map(data/ref_full.npz)
               + track_monocular on the 32 recorded frames (rendered here by
               the port's io/synthetic). States must equal the JAX package's,
@@ -44,8 +49,8 @@ detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
 
 Launch counts are zeroed just before each of slice, quads and stream and
 read just after: each must have launched the kernels of its path (K1-K3 on
-slice and stream, K4 on quads). Any failed phase exits non-zero before the
-last line is printed.
+slice and stream, K4 on quads), and K2 and K3 once per frame built. Any
+failed phase exits non-zero before the last line is printed.
 """
 
 from __future__ import annotations
@@ -130,6 +135,62 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def kernel_alone_ms(fn, reps=20, warmup=3):
+    """Median device milliseconds of the work fn() enqueues, without its
+    host time: a device-side sleep keeps the stream busy while the host
+    records the first event and enqueues fn, so the events bracket only
+    fn's device work. fn should be a bare launch (no allocation)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def one_kernel_per_call(calls, reps=3):
+    """One torch.profiler session over `reps` calls of each (label, kernel,
+    fn) in `calls`, in turn. Fails unless each call ran exactly one device
+    kernel, its `kernel`. Returns {label: mean device microseconds}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, _, fn in calls:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    seen = [(e.name, e.time_range.end - e.time_range.start) for e in evs]
+    out = {}
+    for k, (label, kernel, _) in enumerate(calls):
+        mine = seen[k * reps:(k + 1) * reps]
+        if len(seen) != len(calls) * reps or not all(kernel in n
+                                                     for n, _ in mine):
+            raise PhaseError(
+                f"{label}: expected one device kernel '{kernel}' per call; "
+                f"the profiler saw {collections.Counter(n for n, _ in seen)} "
+                f"over {reps} calls each of {[c[0] for c in calls]}")
+        out[label] = statistics.mean(us for _, us in mine)
+    return out
+
+
 def bound(nbytes, ops):
     """(least ms the card could take, what bounds it): the larger of the
     bytes over HBM bandwidth and the operations over the scalar rate."""
@@ -143,6 +204,14 @@ def check_launches(path, counts):
     if missing:
         raise PhaseError(f"kernels never launched by the {path} path: "
                          f"{missing} (counts {counts})")
+
+
+def check_frames_built(path, counts, frames):
+    """Each frame built launches K2 once (all 8 levels) and K3 once."""
+    if not counts["patches"] == counts["cc_fused"] == frames:
+        raise PhaseError(f"the {path} path built {frames} frames but "
+                         f"launched K2 {counts['patches']} and K3 "
+                         f"{counts['cc_fused']} times (one each per frame)")
 
 
 def rot_err_deg(Ra, Rb):
@@ -208,9 +277,9 @@ def load_reference():
     return path, cfg, ref, imgs
 
 
-def half_res_binary(img_np, cfg):
+def quad_binary(img_np, cfg, ds):
     """The quad proposal's input: adaptive threshold + majority downsample
-    of a frame, on the card."""
+    by ds of a frame, on the card."""
     import torch
 
     from orb_slam2_aruco_tpu_torch.ops.aruco import detector
@@ -219,7 +288,7 @@ def half_res_binary(img_np, cfg):
     gray = torch.as_tensor(img_np).to(DEVICE).float()
     binary = detector.adaptive_threshold(gray, acfg.adaptive_thresh_win,
                                          acfg.adaptive_thresh_c)
-    return detector.downsample_majority(binary, acfg.detect_downsample)
+    return detector.downsample_majority(binary, ds)
 
 
 def window_union_px(shape, y0, x0, size=32):
@@ -239,8 +308,10 @@ def kernel_phase(cfg, img_np):
     """Each kernel against its plain version at its path's shapes. Returns
     {name: report dict}; K1 and K2 ms are per frame (8 pyramid levels), K3
     per call, K4 per sweep (one launch)."""
+    import numpy as np
     import torch
 
+    from orb_slam2_aruco_tpu_torch import kernels
     from orb_slam2_aruco_tpu_torch.ops import (
         cc_fused,
         cc_propagate,
@@ -289,56 +360,100 @@ def kernel_phase(cfg, img_np):
     phase("kernels", f"K1 fast: equal to plain on {len(levels)} levels "
           f"{[tuple(l.shape) for l in levels]}; per frame {msg}")
 
-    # K2: patches at each level's keypoint quota
+    # K2: patches of the 8 levels at their keypoint quotas, one launch
     quotas = level_quotas(ocfg.num_features, ocfg.num_levels,
                           ocfg.scale_factor)
-    jobs = []
+    blurred, xys = [], []
     for lvl, q in zip(levels, quotas):
         kp = fast.detect_level(lvl, ocfg.fast_threshold,
                                ocfg.fast_min_threshold,
                                cell_size=ocfg.cell_size, per_cell_k=8,
                                max_kps=q, edge_margin=ocfg.patch_radius + 1)
-        blurred = image.gaussian_blur(lvl, ocfg.blur_ksize, ocfg.blur_sigma)
-        y0, x0 = orb.patch_corners(blurred.shape, kp.xy)
-        jobs.append((blurred, y0, x0))
+        blurred.append(image.gaussian_blur(lvl, ocfg.blur_ksize,
+                                           ocfg.blur_sigma))
+        xys.append(kp.xy)
     ar = torch.arange(32, device=DEVICE)
     gathers = []      # the library yardstick: one advanced-index gather
     nbytes = 0
-    for blurred, y0, x0 in jobs:
-        a = orb.extract_patches_cuda(blurred, y0, x0)
-        b = orb.extract_patches_torch(blurred, y0, x0)
+    for lvl, xy in zip(blurred, xys):
+        y0, x0 = orb.patch_corners(lvl.shape, xy)
         yy = y0.long()[:, None, None] + ar[None, :, None]
         xx = x0.long()[:, None, None] + ar[None, None, :]
-        torch.cuda.synchronize()
-        if not torch.equal(a, b) or not torch.equal(a, blurred[yy, xx]):
-            raise PhaseError("K2 patches differ from their plain version")
-        gathers.append((blurred, yy, xx))
-        nbytes += 4 * (a.numel() + window_union_px(
-            blurred.shape, y0.cpu().tolist(), x0.cpu().tolist()))
-    ms = cuda_ms(lambda: [orb.extract_patches_cuda(*j) for j in jobs])
-    plain = cuda_ms(lambda: [orb.extract_patches_torch(*j) for j in jobs])
-    library = cuda_ms(lambda: [b[yy, xx] for b, yy, xx in gathers])
-    msg = report("patches", 0.0, ms, plain, nbytes, 0, library)
-    phase("kernels", f"K2 patches: equal to plain for quotas {quotas}; per "
-          f"frame {msg}")
-
-    # K3: CC + bbox on the half-resolution binary of the frame
-    binary = half_res_binary(img_np, cfg)
-    a = cc_fused.cc_fused_cuda(binary)
-    b = cc_fused.cc_fused_torch(binary)
+        gathers.append((lvl, yy, xx))
+        nbytes += 4 * (xy.shape[0] * 32 * 32 + window_union_px(
+            lvl.shape, y0.cpu().tolist(), x0.cpu().tolist()))
+    a = orb.extract_patches_levels(blurred, xys)
+    b = orb.extract_patches_levels_torch(blurred, xys)
+    c = torch.cat([g[yy, xx] for g, yy, xx in gathers])
     torch.cuda.synchronize()
-    if a[3] != b[3] or not all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])):
-        raise PhaseError("K3 cc_fused differs from its plain version")
-    ms = cuda_ms(lambda: cc_fused.cc_fused_cuda(binary))
-    plain = cuda_ms(lambda: cc_fused.cc_fused_torch(binary))
+    if not (torch.equal(a, b) and torch.equal(a, c)):
+        raise PhaseError("K2 patches differ from their plain version")
+    ms = cuda_ms(lambda: orb.extract_patches_levels(blurred, xys))
+    plain = cuda_ms(lambda: orb.extract_patches_levels_torch(blurred, xys))
+    library = cuda_ms(lambda: [g[yy, xx] for g, yy, xx in gathers])
+    # the kernel alone: the bare launcher on a prepared level table
+    table = np.array([(lvl.data_ptr(), xy.data_ptr(), 0, 0, lvl.shape[0],
+                       lvl.shape[1], xy.shape[0])
+                      for lvl, xy in zip(blurred, xys)], dtype=np.int64)
+    launch = kernels.build.launcher("patches")
+    stream = torch.cuda.current_stream().cuda_stream
+    alone = kernel_alone_ms(lambda: launch(table.ctypes.data, len(blurred),
+                                           a.data_ptr(), stream))
+    msg = report("patches", 0.0, ms, plain, nbytes, 0, library)
+    out["patches"]["kernel_ms"] = alone
+    phase("kernels", f"K2 patches: equal to plain and to the gathers for "
+          f"quotas {quotas} on levels {[tuple(l.shape) for l in blurred]}; "
+          f"per frame (one launch) {msg}; kernel alone {alone:.4f} ms")
+
+    # K3: CC + bbox on the frame's binary at the bench's half resolution
+    # (270x480, detect_downsample=2) and at full resolution (540x960, the
+    # default detect_downsample=1); each held bit-equal to plain
+    k3, binaries = {}, {}
+    for ds in (cfg.aruco.detect_downsample, 1):
+        binary = binaries[ds] = quad_binary(img_np, cfg, ds)
+        H, W = binary.shape
+        Hp, Wp = cc_fused.padded_shape(H, W)
+        a = cc_fused.cc_fused_cuda(binary)
+        b = cc_fused.cc_fused_torch(binary)
+        torch.cuda.synchronize()
+        if a[3] != b[3] or not all(torch.equal(x, y)
+                                   for x, y in zip(a[:3], b[:3])):
+            raise PhaseError(f"K3 cc_fused differs from its plain version "
+                             f"at {H}x{W}")
+        ms = cuda_ms(lambda: cc_fused.cc_fused_cuda(binary))
+        plain = cuda_ms(lambda: cc_fused.cc_fused_torch(binary), reps=5)
+        fields = torch.empty((2, Hp, Wp, 4), dtype=torch.int32, device=DEVICE)
+        outs = torch.empty((3, H, W), dtype=torch.int32, device=DEVICE)
+        launch = kernels.build.launcher("cc_fused")
+        stream = torch.cuda.current_stream().cuda_stream
+        alone = kernel_alone_ms(lambda: launch(
+            binary.data_ptr(), H, W, Hp, Wp, fields.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), 3, 2,
+            stream))
+        # bytes: the binary in, three int32 outputs; operations: 3 rounds x
+        # (2 steps x 8 neighbours x 4 fields + 4 scans x 4 fields)
+        b_ms, b_by = bound(H * W * (1 + 3 * 4),
+                           Hp * Wp * 3 * (2 * 8 * 4 + 4 * 4))
+        k3[ds] = dict(ms=ms, kernel_ms=alone, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by)
+        phase("kernels", f"K3 cc_fused at {H}x{W} (detect_downsample={ds}, "
+              f"padded {Hp}x{Wp}): lab/bw/bh/Wp equal to plain "
+              f"({int(binary.sum())} foreground px); per call {ms:.4f} ms, "
+              f"kernel alone {alone:.4f} ms; plain {plain:.4f} ms; bound "
+              f"{b_ms:.5f} ms by {b_by}; library none")
+    out["cc_fused"] = dict(max_abs_err=0.0, library_ms=None,
+                           **k3[cfg.aruco.detect_downsample])
+    out["cc_fused"]["full_resolution"] = k3[1]
+    prof = one_kernel_per_call(
+        [("K2 frame", "extract_patches_kernel",
+          lambda: orb.extract_patches_levels(blurred, xys))]
+        + [(f"K3 {tuple(b.shape)}", "cc_fused_kernel",
+            lambda b=b: cc_fused.cc_fused_cuda(b))
+           for b in binaries.values()])
+    phase("kernels", f"profiler: one device kernel per K2 frame and per K3 "
+          f"call; mean device us {({k: round(v, 2) for k, v in prof.items()})}")
+    binary = binaries[cfg.aruco.detect_downsample]
     H, W = binary.shape
-    Hp, Wp = cc_fused.padded_shape(H, W)
-    # 3 rounds x (2 steps x 8 neighbours x 4 fields + 4 scans x 4 fields)
-    msg = report("cc_fused", 0.0, ms, plain, H * W * (1 + 3 * 4),
-                 Hp * Wp * 3 * (2 * 8 * 4 + 4 * 4), None)
-    phase("kernels", f"K3 cc_fused: lab/bw/bh/Wp equal to plain on "
-          f"{tuple(binary.shape)} ({int(binary.sum())} foreground px); per "
-          f"call {msg}")
 
     # K4: one sweep (tile 128, 16 steps) on the initial labels and on the
     # labels after one round (sweep + pointer jump)
@@ -414,6 +529,7 @@ def slice_phase(path, cfg, ref, imgs):
     syncs = tracking.SYNCS["count"]
     phase("slice", f"kernel launches in the per-frame path: {counts}")
     check_launches("slice", counts)
+    check_frames_built("slice", counts, len(imgs))
 
     ref_ok = ref["ref_ok"].astype(bool)
     if list(ref_ok) != states:
@@ -485,7 +601,8 @@ def quads_phase(cfg, ref, imgs):
 
     acfg = cfg.aruco
     frames = [int(i) for i in ref["ref_quad_frames"]]
-    binaries = [half_res_binary(imgs[i], cfg) for i in frames]
+    binaries = [quad_binary(imgs[i], cfg, acfg.detect_downsample)
+                for i in frames]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     outs = [detector.quad_candidates(
@@ -558,6 +675,8 @@ def stream_phase(path, cfg, ref, imgs):
     chunks, rewinds = system.stats["chunks"], system.stats["rewinds"]
     phase("stream", f"kernel launches in the stream: {counts}")
     check_launches("stream", counts)
+    if rewinds == 0:
+        check_frames_built("stream", counts, len(frames))
 
     fids = [f for f, _ in out]
     if fids != ref["ref_stream_fid"].tolist():

@@ -23,6 +23,9 @@ from orb_slam2_aruco_tpu_torch.kernels import build  # noqa: F401
 
 KERNELS = ("fast", "patches", "cc_fused", "cc_propagate")
 
+# dynamic shared memory a block may opt into on the H100 (sm_90)
+SMEM_LIMIT = 232448
+
 launch_counts = {name: 0 for name in KERNELS}
 
 

@@ -32,9 +32,8 @@ F = ctypes.c_float
 # never truncates them to 32 bits)
 SIGNATURES = {
     "fast": ("fast_score_nms_launch", [P, P, I, I, F, F, P]),
-    "patches": ("extract_patches_launch", [P, P, P, P, I, I, I, I, P]),
-    "cc_fused": ("cc_fused_launch",
-                 [P, I, I, I, I, P, P, P, P, P, P, I, I, P]),
+    "patches": ("extract_patches_launch", [P, I, P, P]),
+    "cc_fused": ("cc_fused_launch", [P, I, I, I, I, P, P, P, P, I, I, P]),
     "cc_propagate": ("cc_propagate_launch", [P, P, I, I, I, I, I, I, P]),
 }
 

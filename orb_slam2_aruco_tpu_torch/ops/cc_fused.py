@@ -8,7 +8,8 @@ the padded grid — so its output equals the TPU kernel's bit for bit, on
 blobs that converge and on those that do not:
 
   * `cc_fused_cuda` launches the hand-written kernel
-    (kernels/csrc/cc_fused.cu) on a CUDA tensor;
+    (kernels/csrc/cc_fused.cu: one cooperative launch per call, its phases
+    separated by grid-wide syncs) on a CUDA tensor;
   * `cc_fused_torch` is the plain PyTorch version (the TPU kernel's
     doubling scans, written on tensors), used for CPU tensors.
 
@@ -108,27 +109,39 @@ def cc_fused_torch(binary, rounds: int = 3, prop_steps: int = 2):
             bh[:H, :W].to(torch.int32), Wp)
 
 
+def _jacobi_smem_bytes(prop_steps: int) -> int:
+    """Shared memory of K3's Jacobi phase: two int4 buffers of a 32x32 tile
+    plus a prop_steps-pixel halo (kernels/csrc/cc_fused.cu)."""
+    return 2 * (32 + 2 * prop_steps) ** 2 * 16
+
+
 def cc_fused_cuda(binary, rounds: int = 3, prop_steps: int = 2):
-    """Launch kernel K3 (kernels/csrc/cc_fused.cu) on a CUDA bool [H, W]."""
+    """Launch kernel K3 (kernels/csrc/cc_fused.cu, one cooperative launch)
+    on a CUDA bool [H, W]."""
     if not (binary.is_cuda and binary.dtype == torch.bool
             and binary.dim() == 2):
         raise ValueError("cc_fused_cuda takes a CUDA bool [H, W]")
+    if rounds < 1 or prop_steps < 0:
+        raise ValueError(f"cc_fused_cuda takes rounds >= 1 and prop_steps "
+                         f">= 0, not {rounds}, {prop_steps}")
+    if _jacobi_smem_bytes(prop_steps) > kernels.SMEM_LIMIT:
+        raise ValueError(f"prop_steps={prop_steps}: the Jacobi tile and its "
+                         f"halo need {_jacobi_smem_bytes(prop_steps)} bytes "
+                         f"of shared memory, above {kernels.SMEM_LIMIT}")
     H, W = binary.shape
     Hp, Wp = padded_shape(H, W)
     dev = binary.device
-    src = binary.contiguous().view(torch.uint8)
-    fg = torch.empty((Hp, Wp), dtype=torch.uint8, device=dev)
-    fa = torch.empty((4, Hp, Wp), dtype=torch.int32, device=dev)
-    fb = torch.empty_like(fa)
-    lab = torch.empty((H, W), dtype=torch.int32, device=dev)
-    bw = torch.empty_like(lab)
-    bh = torch.empty_like(lab)
+    # one allocation: the two int4 field buffers (scratch), then lab, bw, bh
+    n_fields = 2 * Hp * Wp * 4
+    buf = torch.empty(n_fields + 3 * H * W, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    out = base + 4 * n_fields
     err = kernels.build.launcher("cc_fused")(
-        src.data_ptr(), H, W, Hp, Wp, fg.data_ptr(), fa.data_ptr(),
-        fb.data_ptr(), lab.data_ptr(), bw.data_ptr(), bh.data_ptr(),
-        int(rounds), int(prop_steps),
+        binary.contiguous().data_ptr(), H, W, Hp, Wp, base, out,
+        out + 4 * H * W, out + 8 * H * W, int(rounds), int(prop_steps),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch("cc_fused", err)
+    lab, bw, bh = buf[n_fields:].view(3, H, W)
     return lab, bw, bh, Wp
 
 

@@ -26,9 +26,6 @@ import torch
 
 from orb_slam2_aruco_tpu_torch import kernels
 
-# dynamic shared memory a Hopper block can use (two staged buffers)
-_SMEM_LIMIT = 232448
-
 
 def _pad(labels, tile: int, halo: int):
     """[H, W] -> the sentinel-padded [Hp + 2 halo, Wp + 2 halo] buffer."""
@@ -84,7 +81,7 @@ def cc_propagate_cuda(labels, passes: int = 12, k_steps: int = 16,
         raise ValueError("cc_propagate_cuda takes a CUDA int32 [H, W]")
     halo = k_steps
     hb = tile + 2 * halo
-    if 2 * hb * hb * 4 > _SMEM_LIMIT:
+    if 2 * hb * hb * 4 > kernels.SMEM_LIMIT:
         raise ValueError(f"tile {tile} + halo {halo}: two {hb}x{hb} int32 "
                          f"buffers exceed a block's shared memory")
     H, W = labels.shape

@@ -5,10 +5,12 @@ src/ORBextractor.cc:77-104, and computeOrbDescriptor, :108-147). The seeded
 sampling pattern and the separable steering tables are generated with the
 same numpy calls, so they are bit-identical to the JAX package's.
 
-Patch extraction is `extract_patches`, which replaces the TPU kernel
-ops/pallas_patches.py::extract_patches_pallas: `extract_patches_cuda`
-launches the hand-written kernel (kernels/csrc/patches.cu) on a CUDA tensor,
-`extract_patches_torch` is the plain gather for CPU tensors.
+Patch extraction replaces the TPU kernel
+ops/pallas_patches.py::extract_patches_pallas. `extract_patches_levels`
+takes every pyramid level of a frame and its keypoints: on CUDA tensors it
+is one launch of the hand-written kernel (kernels/csrc/patches.cu), on CPU
+tensors the plain per-level gathers (`extract_patches_torch`).
+`extract_patches_cuda` is the same kernel on one level at given corners.
 
 Packed descriptors are carried as int32 holding the uint32 bits of the JAX
 package (torch lacks most bitwise ops on uint32); right shifts are masked.
@@ -111,27 +113,85 @@ def extract_patches_torch(img, y0, x0, patch: int = _PATCH):
     return img[rows, cols]
 
 
-def extract_patches_cuda(img, y0, x0, patch: int = _PATCH):
-    """Launch kernel K2 (kernels/csrc/patches.cu) on CUDA tensors."""
+# levels one K2 launch takes (kMaxLevels in kernels/csrc/patches.cu)
+_MAX_LEVELS = 16
+
+
+def _launch_patches(rows, device):
+    """One K2 launch over the levels `rows`: (img, xy, y0, x0, n), xy or
+    y0/x0 None. Returns the [sum n, 32, 32] patches in level order."""
+    total = sum(r[4] for r in rows)
+    out = torch.empty((total, _PATCH, _PATCH), dtype=torch.float32,
+                      device=device)
+    if total == 0:
+        return out
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    table = np.array([(img.data_ptr(), ptr(xy), ptr(y0), ptr(x0),
+                       img.shape[0], img.shape[1], n)
+                      for img, xy, y0, x0, n in rows], dtype=np.int64)
+    err = kernels.build.launcher("patches")(
+        table.ctypes.data, len(rows), out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    kernels.check_launch("patches", err)
+    return out
+
+
+def _check_level(img, patch):
     if not (img.is_cuda and img.dtype == torch.float32 and img.dim() == 2):
-        raise ValueError("extract_patches_cuda takes a CUDA float32 [H, W]")
-    if not (y0.is_cuda and x0.is_cuda) or y0.shape != x0.shape:
-        raise ValueError("extract_patches_cuda takes CUDA y0, x0 of one "
-                         "shape [N]")
+        raise ValueError("K2 takes CUDA float32 [H, W] images")
+    if patch != _PATCH:
+        raise ValueError(f"K2 extracts {_PATCH}px patches, not {patch}px")
     H, W = img.shape
     if H < patch or W < patch:
         raise ValueError(f"image {H}x{W} smaller than the {patch}px patch")
-    img = img.contiguous()
+    return img.contiguous()
+
+
+def extract_patches_cuda(img, y0, x0, patch: int = _PATCH):
+    """Launch kernel K2 (kernels/csrc/patches.cu) on one CUDA image at
+    top-left corners (y0, x0) [N]."""
+    img = _check_level(img, patch)
+    if not (y0.is_cuda and x0.is_cuda) or y0.shape != x0.shape:
+        raise ValueError("extract_patches_cuda takes CUDA y0, x0 of one "
+                         "shape [N]")
     y0 = y0.to(torch.int32).contiguous()
     x0 = x0.to(torch.int32).contiguous()
-    n = y0.shape[0]
-    out = torch.empty((n, patch, patch), dtype=torch.float32,
-                      device=img.device)
-    err = kernels.build.launcher("patches")(
-        img.data_ptr(), y0.data_ptr(), x0.data_ptr(), out.data_ptr(), n, H,
-        W, patch, torch.cuda.current_stream(img.device).cuda_stream)
-    kernels.check_launch("patches", err)
-    return out
+    return _launch_patches([(img, None, y0, x0, y0.shape[0])], img.device)
+
+
+def extract_patches_levels_cuda(levels, xys, patch: int = _PATCH):
+    """Launch kernel K2 once for all levels: levels [H_l, W_l] float32 and
+    keypoints xys [N_l, 2] float32 on the card -> [sum N_l, 32, 32]."""
+    if not 1 <= len(levels) <= _MAX_LEVELS or len(levels) != len(xys):
+        raise ValueError(f"extract_patches_levels_cuda takes 1 to "
+                         f"{_MAX_LEVELS} levels, each with its keypoints")
+    rows = []
+    for img, xy in zip(levels, xys):
+        img = _check_level(img, patch)
+        if not (xy.is_cuda and xy.dtype == torch.float32 and xy.dim() == 2
+                and xy.shape[1] == 2):
+            raise ValueError("extract_patches_levels_cuda takes CUDA "
+                             "float32 keypoints [N, 2]")
+        xy = xy.contiguous()
+        rows.append((img, xy, None, None, xy.shape[0]))
+    return _launch_patches(rows, levels[0].device)
+
+
+def extract_patches_levels_torch(levels, xys, patch: int = _PATCH):
+    """Plain version of extract_patches_levels_cuda: the per-level gathers,
+    concatenated."""
+    return torch.cat([
+        extract_patches_torch(img, *patch_corners(img.shape, xy, patch), patch)
+        for img, xy in zip(levels, xys)])
+
+
+def extract_patches_levels(levels, xys, patch: int = _PATCH):
+    """[sum N_l, patch, patch] patches centred at the keypoints of every
+    level, in level order: one K2 launch on CUDA tensors, the plain version
+    on CPU tensors."""
+    if levels[0].is_cuda:
+        return extract_patches_levels_cuda(levels, xys, patch)
+    return extract_patches_levels_torch(levels, xys, patch)
 
 
 def patch_corners(img_shape, xy, patch: int = _PATCH):
@@ -147,10 +207,7 @@ def patch_corners(img_shape, xy, patch: int = _PATCH):
 def extract_patches(img, xy, patch: int = _PATCH):
     """[N, patch, patch] patches with top-left at kp - patch/2: K2 on a CUDA
     tensor, its plain version on a CPU tensor."""
-    y0, x0 = patch_corners(img.shape, xy, patch)
-    if img.is_cuda:
-        return extract_patches_cuda(img, y0, x0, patch)
-    return extract_patches_torch(img, y0, x0, patch)
+    return extract_patches_levels([img], [xy], patch)
 
 
 def angles_from_patches(patches):
@@ -180,14 +237,23 @@ def describe_patches(patches, angles):
     return pack_bits(bits)
 
 
-_SHIFTS = torch.arange(32, dtype=torch.int64)
+_device_shifts = {}
+
+
+def _shifts_on(device):
+    """The bit positions 0..31 as int64 on `device`, made there once."""
+    key = str(device)
+    if key not in _device_shifts:
+        _device_shifts[key] = torch.arange(32, dtype=torch.int64,
+                                           device=device)
+    return _device_shifts[key]
 
 
 def pack_bits(bits):
     """[N, 256] {0,1} -> [N, 8] int32 (the uint32 bit pattern)."""
     n = bits.shape[0]
     b = bits.reshape(n, 8, 32).to(torch.int64)
-    w = torch.sum(b << _SHIFTS.to(bits.device), dim=-1)
+    w = torch.sum(b << _shifts_on(bits.device), dim=-1)
     return (w - ((w >> 31) << 32)).to(torch.int32)     # wrap into int32
 
 
@@ -195,7 +261,7 @@ def unpack_bits(packed):
     """[N, 8] int32 -> [N, 256] float32 in {0, 1}."""
     n = packed.shape[0]
     p = packed.to(torch.int64) & 0xFFFFFFFF
-    b = (p[:, :, None] >> _SHIFTS.to(packed.device)) & 1
+    b = (p[:, :, None] >> _shifts_on(packed.device)) & 1
     return b.reshape(n, 256).to(torch.float32)
 
 

@@ -2,9 +2,10 @@
 
 Port of orb_slam2_aruco_tpu/pipeline/frontend.py (reference Frame::Frame,
 src/Frame.cc:74-181). `make_frame` runs eagerly on the image's device; on a
-CUDA tensor its three kernels are K1 (FAST, 8 calls), K2 (patches, 8 calls)
-and K3 (connected components, 1 call; with aruco.use_pallas_cc=False the
-quad proposal runs plain connected components instead).
+CUDA tensor its three kernels are K1 (FAST, 8 calls), K2 (patches, 1 call
+for all 8 levels) and K3 (connected components, 1 call; with
+aruco.use_pallas_cc=False the quad proposal runs plain connected components
+instead).
 """
 
 from __future__ import annotations
@@ -86,16 +87,21 @@ def make_frame(img, cam: Camera, cfg: SlamConfig) -> Frame:
     levels = image.build_pyramid(gray, ocfg.num_levels, ocfg.scale_factor)
     quotas = level_quotas(ocfg.num_features, ocfg.num_levels,
                           ocfg.scale_factor)
+    kps = [fast.detect_level(
+        lvl_img, ocfg.fast_threshold, ocfg.fast_min_threshold,
+        cell_size=ocfg.cell_size, per_cell_k=8, max_kps=quota,
+        edge_margin=ocfg.patch_radius + 1,
+    ) for lvl_img, quota in zip(levels, quotas)]
+    blurred = [image.gaussian_blur(lvl_img, ocfg.blur_ksize, ocfg.blur_sigma)
+               for lvl_img in levels]
+    # one K2 launch for every level; angles and descriptors per level, on
+    # views of its output
+    all_patches = orb.extract_patches_levels(blurred, [kp.xy for kp in kps])
     xs, octs, angs, descs, valids = [], [], [], [], []
-    for l, (lvl_img, quota) in enumerate(zip(levels, quotas)):
-        kp = fast.detect_level(
-            lvl_img, ocfg.fast_threshold, ocfg.fast_min_threshold,
-            cell_size=ocfg.cell_size, per_cell_k=8, max_kps=quota,
-            edge_margin=ocfg.patch_radius + 1,
-        )
-        blurred = image.gaussian_blur(lvl_img, ocfg.blur_ksize,
-                                      ocfg.blur_sigma)
-        patches = orb.extract_patches(blurred, kp.xy)
+    start = 0
+    for l, (kp, quota) in enumerate(zip(kps, quotas)):
+        patches = all_patches[start:start + quota]
+        start += quota
         ang = orb.angles_from_patches(patches)
         xs.append(kp.xy * ocfg.scale_factor**l)
         octs.append(torch.full((quota,), l, dtype=torch.int64, device=dev))

@@ -100,16 +100,79 @@ def test_patches_cuda_matches_plain(cuda_device):
                        orb.extract_patches_torch(img, y0, x0))
 
 
+def bench_levels(device):
+    """The bench's 8 blurred pyramid levels of a rendered 960x540 frame
+    (widths 960, 800, 667, 556, ...) and their FAST keypoints at the bench's
+    quotas (1000 features)."""
+    from orb_slam2_aruco_tpu_torch.config import CameraConfig
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+    from orb_slam2_aruco_tpu_torch.ops import image
+    from orb_slam2_aruco_tpu_torch.pipeline.frontend import level_quotas
+
+    world = synthetic.build_world([3, 17, 42, 99], px_per_m=500.0,
+                                  spacing=0.6)
+    R, t = synthetic.look_at_plane_pose((0.6, 0.3), 1.6, yaw=0.05)
+    frame = np.clip(synthetic.render_view(world, CameraConfig(), R, t),
+                    0, 255).astype(np.float32)
+    levels = image.build_pyramid(torch.as_tensor(frame, device=device), 8,
+                                 1.2)
+    blurred, xys = [], []
+    for lvl, q in zip(levels, level_quotas(1000, 8, 1.2)):
+        kp = fast.detect_level(lvl, T_HI, T_LO, 32, 8, q, 16)
+        blurred.append(image.gaussian_blur(lvl))
+        xys.append(kp.xy)
+    return blurred, xys
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["marker_rings", "spiral"])
+def test_patches_levels_cuda_matches_plain(cuda_device):
+    blurred, xys = bench_levels(cuda_device)
+    assert [l.shape[1] for l in blurred][:3] == [960, 800, 667]
+    # keypoints on .5 steps and past every edge, on the card's rounding
+    h, w = blurred[2].shape
+    odd = torch.tensor([[16.5, 17.5], [17.5, 16.5], [-30.0, 5.5],
+                        [w + 30.0, h - 15.5], [w - 16.5, h + 30.0],
+                        [2.5, -7.0]], device=cuda_device)
+    xys[2] = torch.cat([xys[2], odd])
+    kernels.reset_launch_counts()
+    got = orb.extract_patches_levels(blurred, xys)
+    assert kernels.launch_counts["patches"] == 1
+    assert torch.equal(got, orb.extract_patches_levels_torch(blurred, xys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["marker_rings", "spiral", "rings_540x960",
+                                  "random_61x133"])
 def test_cc_cuda_matches_plain(cuda_device, case):
     rng = np.random.default_rng(6)
-    binary = rings(rng, 270, 480) if case == "marker_rings" else spiral()
+    if case == "marker_rings":
+        binary = rings(rng, 270, 480)
+    elif case == "rings_540x960":
+        binary = rings(rng, 540, 960)
+    elif case == "random_61x133":                   # padded to 64x256
+        binary = rng.uniform(size=(61, 133)) < 0.45
+    else:
+        binary = spiral()                           # does not converge
     binary = torch.as_tensor(binary, device=cuda_device)
     got = cc_fused.cc_fused_cuda(binary)
     want = cc_fused.cc_fused_torch(binary)
     assert got[3] == want[3]
     assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prop_steps", [1, 2, 3])
+def test_cc_cuda_prop_steps_match_plain(cuda_device, prop_steps):
+    rng = np.random.default_rng(9)
+    binary = rng.uniform(size=(270, 480)) < 0.45
+    binary[:64, :64] = spiral()
+    binary = torch.as_tensor(binary, device=cuda_device)
+    for rounds in (1, 3):
+        got = cc_fused.cc_fused_cuda(binary, rounds, prop_steps)
+        want = cc_fused.cc_fused_torch(binary, rounds, prop_steps)
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+    with pytest.raises(ValueError, match="shared memory"):
+        cc_fused.cc_fused_cuda(binary, 3, 30)
 
 
 @pytest.mark.cuda
@@ -147,7 +210,9 @@ def test_each_cuda_launch_is_counted_once(cuda_device):
     img = torch.rand((64, 160), device=cuda_device) * 255
     kernels.reset_launch_counts()
     fast.fast_score_nms(img, T_HI, T_LO)
-    orb.extract_patches(img, torch.tensor([[40.0, 30.0]], device=cuda_device))
+    xy = torch.tensor([[40.0, 30.0]], device=cuda_device)
+    orb.extract_patches_levels([img, img[:, :80].contiguous()] * 4,
+                               [xy] * 8)       # 8 levels, one launch
     cc_fused.cc_fused(img > 128)
     labels = torch.as_tensor(init_labels(spiral(64)), device=cuda_device)
     cc_propagate.cc_propagate(labels, 1, 16, 128)     # one sweep, one launch

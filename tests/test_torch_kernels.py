@@ -7,7 +7,9 @@ tests/test_pallas_cc.py run them:
 
   K1 FAST score + NMS: exact in rows/cols [3, H-3) x [3, W-3), where the
      Pallas kernel and the XLA branch of ops/fast.py also agree;
-  K2 patches: exact;
+  K2 patches: exact, one level or all eight at once (extract_patches_levels,
+     the kernel's per-frame form), with the JAX package's corner rounding
+     (half to even) and clipping;
   K3 connected components + bboxes: lab, bw, bh and Wp exactly equal,
      including on a blob that does not converge in 3 rounds.
 
@@ -23,6 +25,7 @@ import jax.numpy as jnp
 import torch
 
 from orb_slam2_aruco_tpu.ops import fast as jfast
+from orb_slam2_aruco_tpu.ops import orb as jorb
 from orb_slam2_aruco_tpu.ops.pallas_cc_fused import cc_fused as jcc_fused
 from orb_slam2_aruco_tpu.ops.pallas_fast import fast_score_nms as jfast_nms
 from orb_slam2_aruco_tpu.ops.pallas_patches import extract_patches_pallas
@@ -79,6 +82,72 @@ def test_patches_plain_matches_pallas_and_dynamic_slice():
     np.testing.assert_array_equal(plain, ref)
 
 
+def _jax_corners(img, xy):
+    """The JAX package's corners (ops/orb.py extract_patches)."""
+    h, w = img.shape
+    x0 = jnp.clip(jnp.round(xy[:, 0]).astype(jnp.int32) - 16, 0, w - 32)
+    y0 = jnp.clip(jnp.round(xy[:, 1]).astype(jnp.int32) - 16, 0, h - 32)
+    return y0, x0
+
+
+def _levels_and_keypoints(n_levels):
+    """The first n_levels pyramid levels of a rendered frame (widths 203,
+    169, 141, ..., 57), blurred, and their FAST keypoints at ORB quotas."""
+    from orb_slam2_aruco_tpu_torch.ops import image
+    from orb_slam2_aruco_tpu_torch.pipeline.frontend import level_quotas
+
+    levels = image.build_pyramid(
+        torch.as_tensor(rendered_level().astype(np.float32)), 8, 1.2)
+    quotas = level_quotas(160, 8, 1.2)
+    blurred, xys = [], []
+    for lvl, q in list(zip(levels, quotas))[:n_levels]:
+        kp = fast.detect_level(lvl, T_HI, T_LO, 32, 8, q, 16)
+        blurred.append(image.gaussian_blur(lvl))
+        xys.append(kp.xy)
+    return blurred, xys
+
+
+@pytest.mark.parametrize("n_levels", [1, 8])
+def test_patches_levels_plain_matches_pallas_and_dynamic_slice(n_levels):
+    blurred, xys = _levels_and_keypoints(n_levels)
+    got = orb.extract_patches_levels(blurred, xys).numpy()
+    assert got.shape == (sum(xy.shape[0] for xy in xys), 32, 32)
+    start = 0
+    for lvl, xy in zip(blurred, xys):
+        img, jxy = jnp.asarray(lvl.numpy()), jnp.asarray(xy.numpy())
+        mine = got[start:start + xy.shape[0]]
+        start += xy.shape[0]
+        y0, x0 = _jax_corners(img, jxy)
+        pallas = extract_patches_pallas(img, y0, x0, interpret=True)
+        # exact, no tolerance: the same pixels are copied
+        np.testing.assert_array_equal(mine, np.asarray(pallas))
+        np.testing.assert_array_equal(mine, np.asarray(
+            jorb.extract_patches(img, jxy)))       # dynamic_slice on the CPU
+
+
+def test_patch_corners_round_half_to_even_and_clip_at_every_edge():
+    rng = np.random.default_rng(8)
+    img = rng.uniform(0, 255, (57, 81)).astype(np.float32)
+    h, w = img.shape
+    # .5 steps either side of even and odd integers, and keypoints past
+    # each edge and each corner
+    xy = np.array([[16.5, 16.5], [17.5, 17.5], [20.5, 21.5], [-0.5, 30.0],
+                   [-40.0, 30.0], [w + 40.0, 30.0], [w - 16.5, 30.0],
+                   [40.0, -3.0], [40.0, h + 9.0], [40.0, h - 15.5],
+                   [-9.0, -9.0], [w + 3.0, h + 3.0], [-2.5, h + 0.5],
+                   [w - 0.5, -1.5]], np.float32)
+    got = orb.extract_patches_levels([torch.as_tensor(img)],
+                                     [torch.as_tensor(xy)]).numpy()
+    y0, x0 = _jax_corners(jnp.asarray(img), jnp.asarray(xy))
+    assert sorted(set(np.asarray(x0).tolist()) & {0, w - 32}) == [0, w - 32]
+    assert sorted(set(np.asarray(y0).tolist()) & {0, h - 32}) == [0, h - 32]
+    assert np.asarray(x0)[:2].tolist() == [0, 2]      # 16.5 -> 16, 17.5 -> 18
+    np.testing.assert_array_equal(got, np.asarray(extract_patches_pallas(
+        jnp.asarray(img), y0, x0, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(jorb.extract_patches(
+        jnp.asarray(img), jnp.asarray(xy))))
+
+
 @pytest.mark.parametrize("case", ["random_blobs", "marker_rings", "spiral"])
 def test_cc_plain_matches_pallas(case):
     rng = np.random.default_rng(3)
@@ -113,6 +182,9 @@ def test_cpu_tensors_take_the_plain_versions():
     y0, x0 = orb.patch_corners(img.shape, xy)
     assert torch.equal(orb.extract_patches(img, xy),
                        orb.extract_patches_torch(img, y0, x0))
+    assert torch.equal(orb.extract_patches_levels([img, img[:35]], [xy, xy]),
+                       orb.extract_patches_levels_torch([img, img[:35]],
+                                                        [xy, xy]))
     assert kernels.launch_counts == before
 
 
@@ -125,5 +197,7 @@ def test_cuda_bindings_refuse_cpu_tensors():
         fast.fast_score_nms_cuda(img, T_HI, T_LO)
     with pytest.raises(ValueError):
         orb.extract_patches_cuda(img, idx, idx)
+    with pytest.raises(ValueError):
+        orb.extract_patches_levels_cuda([img], [torch.zeros((3, 2))])
     with pytest.raises(ValueError):
         cc_fused.cc_fused_cuda(img > 0)
