@@ -13,18 +13,19 @@ detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
               per source, all at once).
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it on a rendered 960x540 frame: K1
-              FAST on the 8 pyramid levels, K2 patches of all 8 levels at
-              their keypoint quotas (one launch), K3 connected components
-              on the 270x480 half-resolution binary and on the 540x960
-              full-resolution one (the default detect_downsample=1), K4
-              one label sweep (initial labels and labels after one round)
-              at 270x480. Outputs must be equal (K1: in the unmasked
+              FAST on the 8 pyramid levels (one launch), K2 patches of all
+              8 levels at their keypoint quotas (one launch), K3 connected
+              components on the 270x480 half-resolution binary and on the
+              540x960 full-resolution one (the default
+              detect_downsample=1), K4 one label sweep at both sizes
+              (initial labels, and at 270x480 also labels after one
+              round). Outputs must be equal (K1: in the unmasked
               interior). Median times from CUDA events, beside each
               kernel's bound and, where one PyTorch call computes the same
-              function, that call's time; for K2 and K3 also the kernel
+              function, that call's time; for each kernel also the kernel
               alone (events around the bare launch), and a torch.profiler
-              count that must show one device kernel per K2 frame and per
-              K3 call.
+              count that must show one device kernel per K1 frame, K2
+              frame, K3 call and K4 sweep.
   4. slice    per-frame localization: SlamSystem.load_map(data/ref_full.npz)
               + track_monocular on the 32 recorded frames (rendered here by
               the port's io/synthetic). States must equal the JAX package's,
@@ -43,14 +44,14 @@ detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
               fps, the median per-chunk latency (bench.py:205-208), host
               syncs per chunk and rewinds; then one more chunk, of
               DEBUG_FRAMES frames, under torch's sync debug mode counts
-              every synchronizing call.
+              every synchronizing call: at most MAX_DEBUG_SYNCS.
   7. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
 Launch counts are zeroed just before each of slice, quads and stream and
 read just after: each must have launched the kernels of its path (K1-K3 on
-slice and stream, K4 on quads), and K2 and K3 once per frame built. Any
-failed phase exits non-zero before the last line is printed.
+slice and stream, K4 on quads), and K1, K2 and K3 once per frame built.
+Any failed phase exits non-zero before the last line is printed.
 """
 
 from __future__ import annotations
@@ -77,6 +78,9 @@ TRANS_TOL_M = 0.01
 # the slice's frontend / tracking split and the stream's sync-debug chunk
 SPLIT_FRAMES = 12
 DEBUG_FRAMES = 16
+# synchronizing calls the debug chunk may make: the count when this limit
+# was set (a change may remove such calls, never add them)
+MAX_DEBUG_SYNCS = 660
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -207,11 +211,13 @@ def check_launches(path, counts):
 
 
 def check_frames_built(path, counts, frames):
-    """Each frame built launches K2 once (all 8 levels) and K3 once."""
-    if not counts["patches"] == counts["cc_fused"] == frames:
+    """Each frame built launches K1 once (all 8 levels), K2 once (all 8
+    levels) and K3 once."""
+    if not counts["fast"] == counts["patches"] == counts["cc_fused"] == frames:
         raise PhaseError(f"the {path} path built {frames} frames but "
-                         f"launched K2 {counts['patches']} and K3 "
-                         f"{counts['cc_fused']} times (one each per frame)")
+                         f"launched K1 {counts['fast']}, K2 "
+                         f"{counts['patches']} and K3 {counts['cc_fused']} "
+                         f"times (one each per frame)")
 
 
 def rot_err_deg(Ra, Rb):
@@ -306,8 +312,8 @@ def window_union_px(shape, y0, x0, size=32):
 
 def kernel_phase(cfg, img_np):
     """Each kernel against its plain version at its path's shapes. Returns
-    {name: report dict}; K1 and K2 ms are per frame (8 pyramid levels), K3
-    per call, K4 per sweep (one launch)."""
+    {name: report dict}; K1 and K2 ms are per frame (8 pyramid levels, one
+    launch), K3 per call, K4 per sweep (one launch)."""
     import numpy as np
     import torch
 
@@ -335,13 +341,11 @@ def kernel_phase(cfg, img_np):
         return (f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b_ms:.5f} ms by "
                 f"{b_by}, library {lib})")
 
-    # K1: FAST score + NMS on the 8 levels
+    # K1: FAST score + NMS on the 8 levels, one launch
+    t_args = (ocfg.fast_threshold, ocfg.fast_min_threshold)
     err = 0.0
-    for lvl in levels:
-        a = fast.fast_score_nms_cuda(lvl, ocfg.fast_threshold,
-                                     ocfg.fast_min_threshold)
-        b = fast.fast_score_nms_torch(lvl, ocfg.fast_threshold,
-                                      ocfg.fast_min_threshold)
+    for lvl, a in zip(levels, fast.fast_score_nms_levels(levels, *t_args)):
+        b = fast.fast_score_nms_torch(lvl, *t_args)
         torch.cuda.synchronize()
         inner = (slice(3, -3), slice(3, -3))
         if not torch.equal(a[inner], b[inner]):
@@ -350,15 +354,23 @@ def kernel_phase(cfg, img_np):
                              f"{n} interior pixels of a {tuple(lvl.shape)} "
                              f"level")
         err = max(err, float((a - b).abs().max()))
-    t_args = (ocfg.fast_threshold, ocfg.fast_min_threshold)
-    ms = cuda_ms(lambda: [fast.fast_score_nms_cuda(l, *t_args)
-                          for l in levels])
+    ms = cuda_ms(lambda: fast.fast_score_nms_levels(levels, *t_args))
     plain = cuda_ms(lambda: [fast.fast_score_nms_torch(l, *t_args)
                              for l in levels])
+    # the kernel alone: the bare launcher on a prepared level table
+    scores = [torch.empty_like(l) for l in levels]
+    table = np.array([(l.data_ptr(), o.data_ptr(), *l.shape)
+                      for l, o in zip(levels, scores)], dtype=np.int64)
+    launch = kernels.build.launcher("fast")
+    stream = torch.cuda.current_stream().cuda_stream
+    alone = kernel_alone_ms(lambda: launch(table.ctypes.data, len(levels),
+                                           *t_args, stream))
     px = sum(l.numel() for l in levels)
     msg = report("fast", err, ms, plain, 8 * px, FAST_OPS_PER_PX * px, None)
+    out["fast"]["kernel_ms"] = alone
     phase("kernels", f"K1 fast: equal to plain on {len(levels)} levels "
-          f"{[tuple(l.shape) for l in levels]}; per frame {msg}")
+          f"{[tuple(l.shape) for l in levels]}; per frame (one launch) "
+          f"{msg}; kernel alone {alone:.4f} ms")
 
     # K2: patches of the 8 levels at their keypoint quotas, one launch
     quotas = level_quotas(ocfg.num_features, ocfg.num_levels,
@@ -444,54 +456,75 @@ def kernel_phase(cfg, img_np):
     out["cc_fused"] = dict(max_abs_err=0.0, library_ms=None,
                            **k3[cfg.aruco.detect_downsample])
     out["cc_fused"]["full_resolution"] = k3[1]
-    prof = one_kernel_per_call(
-        [("K2 frame", "extract_patches_kernel",
-          lambda: orb.extract_patches_levels(blurred, xys))]
-        + [(f"K3 {tuple(b.shape)}", "cc_fused_kernel",
-            lambda b=b: cc_fused.cc_fused_cuda(b))
-           for b in binaries.values()])
-    phase("kernels", f"profiler: one device kernel per K2 frame and per K3 "
-          f"call; mean device us {({k: round(v, 2) for k, v in prof.items()})}")
-    binary = binaries[cfg.aruco.detect_downsample]
-    H, W = binary.shape
 
-    # K4: one sweep (tile 128, 16 steps) on the initial labels and on the
-    # labels after one round (sweep + pointer jump)
+    # K4: one sweep (tile 128, 16 steps) at both sizes on the initial
+    # labels and, at 270x480, on the labels after one round (sweep +
+    # pointer jump)
     k, tile = 16, 128
-    labels0 = detector.initial_labels(binary)
-    labels1 = detector.pointer_jump(
-        cc_propagate.cc_propagate_torch(labels0, 1, k, tile), H * W)
-    for lab in (labels0, labels1):
-        a = cc_propagate.cc_propagate_cuda(lab, 1, k, tile)
-        b = cc_propagate.cc_propagate_torch(lab, 1, k, tile)
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            n = int((a != b).sum())
-            raise PhaseError(f"K4 cc_propagate differs from its plain "
-                             f"version at {n} pixels")
-    ms = cuda_ms(lambda: cc_propagate.cc_propagate_cuda(labels0, 1, k, tile))
-    # the kernel alone: ten more sweeps in one call add ten launches and
-    # nothing else (padding and crop are once per call)
-    kernel_ms = (cuda_ms(lambda: cc_propagate.cc_propagate_cuda(
-        labels0, 11, k, tile)) - ms) / 10
-    plain = cuda_ms(lambda: cc_propagate.cc_propagate_torch(labels0, 1, k,
+    k4, first_labels = {}, {}
+    for ds, binary in binaries.items():
+        H, W = binary.shape
+        labels0 = first_labels[ds] = detector.initial_labels(binary)
+        cases = [labels0]
+        if ds == cfg.aruco.detect_downsample:
+            cases.append(detector.pointer_jump(
+                cc_propagate.cc_propagate_torch(labels0, 1, k, tile), H * W))
+        for lab in cases:
+            a = cc_propagate.cc_propagate_cuda(lab, 1, k, tile)
+            b = cc_propagate.cc_propagate_torch(lab, 1, k, tile)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                n = int((a != b).sum())
+                raise PhaseError(f"K4 cc_propagate differs from its plain "
+                                 f"version at {n} pixels at {H}x{W}")
+        ms = cuda_ms(lambda: cc_propagate.cc_propagate_cuda(labels0, 1, k,
                                                             tile))
+        plain = cuda_ms(lambda: cc_propagate.cc_propagate_torch(
+            labels0, 1, k, tile), reps=5)
+        dst = torch.empty_like(labels0)
+        launch = kernels.build.launcher("cc_propagate")
+        stream = torch.cuda.current_stream().cuda_stream
+        g = cc_propagate.exchange_rows(tile, k)
+        alone = kernel_alone_ms(lambda: launch(
+            labels0.data_ptr(), dst.data_ptr(), H, W, tile, k, k, g, stream))
+        tiles = -(-H // tile) * -(-W // tile)
+        # bytes: the labels in, the labels out; operations: 8 mins per
+        # pixel of each tile's (hb - 2)^2 inner buffer, k steps
+        b_ms, b_by = bound(2 * 4 * H * W,
+                           tiles * k * (tile + 2 * k - 2) ** 2 * 8)
+        k4[ds] = dict(ms=ms, kernel_ms=alone, plain_ms=plain, bound_ms=b_ms,
+                      bound_by=b_by)
+        phase("kernels", f"K4 cc_propagate at {H}x{W}: equal to plain "
+              f"({len(cases)} label sets), {tiles} tiles x 8 CTAs, ghost "
+              f"rows traded every {g} steps; per "
+              f"sweep {ms:.4f} ms, kernel alone {alone:.4f} ms; plain "
+              f"{plain:.4f} ms; bound {b_ms:.5f} ms by {b_by}; library none")
+    out["cc_propagate"] = dict(max_abs_err=0.0, library_ms=None,
+                               **k4[cfg.aruco.detect_downsample])
+    out["cc_propagate"]["full_resolution"] = k4[1]
+    binary = binaries[cfg.aruco.detect_downsample]
     acfg = cfg.aruco
     quad_ms = cuda_ms(lambda: detector.quad_candidates(
         binary, acfg.max_quad_candidates,
         min_area=acfg.min_quad_side_px**2 / acfg.detect_downsample**2,
         cc_iters=acfg.cc_iters, use_pallas_cc=True), reps=10)
-    Hq, Wq = -(-H // tile) * tile, -(-W // tile) * tile
-    tiles = (Hq // tile) * (Wq // tile)
-    hb = tile + 2 * k
-    msg = report("cc_propagate", 0.0, ms, plain,
-                 4 * ((Hq + 2 * k) * (Wq + 2 * k) + Hq * Wq),
-                 tiles * k * (hb - 2) ** 2 * 8, None)
-    phase("kernels", f"K4 cc_propagate: equal to plain on {(H, W)} padded "
-          f"to {(Hq + 2 * k, Wq + 2 * k)}, {tiles} tiles, initial and "
-          f"one-round labels; per sweep {msg}, of which the kernel alone "
-          f"{kernel_ms:.4f} ms; one whole quad_candidates(use_pallas_cc="
-          f"True) {quad_ms:.4f} ms")
+    phase("kernels", f"one whole quad_candidates(use_pallas_cc=True) at "
+          f"{tuple(binary.shape)}: {quad_ms:.4f} ms")
+
+    prof = one_kernel_per_call(
+        [("K1 frame", "fast_score_nms",
+          lambda: fast.fast_score_nms_levels(levels, *t_args)),
+         ("K2 frame", "extract_patches_kernel",
+          lambda: orb.extract_patches_levels(blurred, xys))]
+        + [(f"K3 {tuple(b.shape)}", "cc_fused_kernel",
+            lambda b=b: cc_fused.cc_fused_cuda(b))
+           for b in binaries.values()]
+        + [(f"K4 sweep {tuple(lab.shape)}", "cc_propagate",
+            lambda lab=lab: cc_propagate.cc_propagate_cuda(lab, 1, k, tile))
+           for lab in first_labels.values()])
+    phase("kernels", f"profiler: one device kernel per K1 frame, K2 frame, "
+          f"K3 call and K4 sweep; mean device us "
+          f"{({name: round(us, 2) for name, us in prof.items()})}")
     return out
 
 
@@ -729,6 +762,9 @@ def stream_phase(path, cfg, ref, imgs):
     phase("stream", f"sync debug mode, one chunk of {DEBUG_FRAMES}: "
           f"{n_sync} synchronizing calls ({n_sync / DEBUG_FRAMES:.2f} per "
           f"frame); most frequent {where.most_common(6)}")
+    if n_sync > MAX_DEBUG_SYNCS:
+        raise PhaseError(f"{n_sync} synchronizing calls in the debug chunk, "
+                         f"above {MAX_DEBUG_SYNCS}")
     return counts
 
 

@@ -31,7 +31,7 @@ F = ctypes.c_float
 # argtypes of each launcher (pointers and the stream as c_void_p, so ctypes
 # never truncates them to 32 bits)
 SIGNATURES = {
-    "fast": ("fast_score_nms_launch", [P, P, I, I, F, F, P]),
+    "fast": ("fast_score_nms_launch", [P, I, F, F, P]),
     "patches": ("extract_patches_launch", [P, I, P, P]),
     "cc_fused": ("cc_fused_launch", [P, I, I, I, I, P, P, P, P, I, I, P]),
     "cc_propagate": ("cc_propagate_launch", [P, P, I, I, I, I, I, I, P]),

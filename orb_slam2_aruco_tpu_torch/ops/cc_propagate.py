@@ -9,9 +9,12 @@ for every tile, `k_steps` Jacobi 8-neighbour min steps on the tile plus its
 halo (the buffer's outer ring fixed) and keeps the tile's interior:
 
   * `cc_propagate_cuda` launches the hand-written kernel
-    (kernels/csrc/cc_propagate.cu) on a CUDA tensor, one launch per sweep;
+    (kernels/csrc/cc_propagate.cu) on a CUDA tensor, one launch per sweep
+    (a cluster of CTAs per tile); the kernel reads the unpadded labels and
+    takes every pixel outside them as the sentinel, so a sweep is that one
+    launch and nothing else;
   * `cc_propagate_torch` is the plain PyTorch version (all tiles of a sweep
-    as one batch), used for CPU tensors.
+    as one batch, on the padded copy), used for CPU tensors.
 
 Every tile of a sweep reads the sweep's input: the Pallas kernel's
 interpret-mode semantics, which both versions equal bit for bit. On the TPU
@@ -72,30 +75,56 @@ def cc_propagate_torch(labels, passes: int = 12, k_steps: int = 16,
     return padded[halo:halo + H, halo:halo + W]
 
 
+# CTAs per tile, rows per thread and step, and threads per CTA
+# (kCluster, kMaxRows, the launch bounds in kernels/csrc/cc_propagate.cu)
+_CLUSTER = 8
+_MAX_ROWS = 12
+_MAX_THREADS = 1024
+# steps between two trades of ghost rows among a tile's CTAs: the fastest
+# of 1, 2, 4, 8 and 16 at tile 128, k 16 (tools/torch_k4_variants.py)
+EXCHANGE = 8
+
+
+def exchange_rows(tile: int, k_steps: int):
+    """The ghost rows g one K4 launch trades every g steps (1 <= g <= the
+    band of 1/8 of the buffer's rows); raises where the kernel cannot take
+    the tile."""
+    hb = tile + 2 * k_steps
+    band = -(-hb // _CLUSTER)
+    g = max(1, min(EXCHANGE, k_steps, band))
+    threads_x = -(-hb // 32) * 32
+    rows = max(1, band + 2 * g - 2)
+    groups = min(_MAX_THREADS // threads_x, rows)
+    if groups < 1 or -(-rows // groups) > _MAX_ROWS or (
+            (2 * (band + 2 * g) + 4 * g) * hb * 4 > kernels.SMEM_LIMIT):
+        raise ValueError(f"tile {tile} + halo {k_steps}: a {hb}-wide buffer "
+                         f"exceeds a CTA's threads or shared memory")
+    return g
+
+
 def cc_propagate_cuda(labels, passes: int = 12, k_steps: int = 16,
                       tile: int = 256):
     """Launch kernel K4 (kernels/csrc/cc_propagate.cu) once per sweep on a
     CUDA int32 [H, W]."""
     if not (labels.is_cuda and labels.dtype == torch.int32
-            and labels.dim() == 2):
+            and labels.dim() == 2 and labels.numel() > 0):
         raise ValueError("cc_propagate_cuda takes a CUDA int32 [H, W]")
-    halo = k_steps
-    hb = tile + 2 * halo
-    if 2 * hb * hb * 4 > kernels.SMEM_LIMIT:
-        raise ValueError(f"tile {tile} + halo {halo}: two {hb}x{hb} int32 "
-                         f"buffers exceed a block's shared memory")
+    g = exchange_rows(tile, k_steps)
     H, W = labels.shape
-    src = _pad(labels, tile, halo)
-    dst = src.clone()          # its halo ring is the sentinel for good
+    src = labels.contiguous()
+    if passes == 0:
+        return src.clone()
     stream = torch.cuda.current_stream(labels.device).cuda_stream
     launch = kernels.build.launcher("cc_propagate")
-    for _ in range(passes):
-        err = launch(src.data_ptr(), dst.data_ptr(), src.shape[0],
-                     src.shape[1], int(tile), int(halo), int(k_steps),
-                     H * W, stream)
+    bufs = [torch.empty_like(src)] + ([torch.empty_like(src)]
+                                      if passes > 1 else [])
+    for p in range(passes):
+        dst = bufs[p % len(bufs)]
+        err = launch(src.data_ptr(), dst.data_ptr(), H, W, int(tile),
+                     int(k_steps), int(k_steps), g, stream)
         kernels.check_launch("cc_propagate", err)
-        src, dst = dst, src
-    return src[halo:halo + H, halo:halo + W]
+        src = dst
+    return src
 
 
 def cc_propagate(labels, passes: int = 12, k_steps: int = 16,

@@ -5,12 +5,14 @@ ComputeKeyPointsOctTree, src/ORBextractor.cc:765-853). The score + NMS +
 bonus stage is `fast_score_nms`, which replaces the TPU kernel
 ops/pallas_fast.py::fast_score_nms:
 
-  * `fast_score_nms_cuda` launches the hand-written kernel
-    (kernels/csrc/fast.cu) on a CUDA tensor;
+  * `fast_score_nms_levels_cuda` launches the hand-written kernel
+    (kernels/csrc/fast.cu) once for every pyramid level of a frame on CUDA
+    tensors; `fast_score_nms_cuda` is the same launch on one level;
   * `fast_score_nms_torch` is the plain PyTorch version of the same
     arithmetic (terms summed in _CIRCLE order), used for CPU tensors.
 
-`fast_score_nms` picks between them only by the tensor's device.
+`fast_score_nms_levels` and `fast_score_nms` pick between them only by the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -84,18 +86,47 @@ def fast_score_nms_torch(img, t_hi: float, t_lo: float):
     return torch.where((score > 0.0) & hi, score + BONUS, score)
 
 
-def fast_score_nms_cuda(img, t_hi: float, t_lo: float):
-    """Launch kernel K1 (kernels/csrc/fast.cu) on a CUDA float32 [H, W]."""
-    if not (img.is_cuda and img.dtype == torch.float32 and img.dim() == 2):
-        raise ValueError("fast_score_nms_cuda takes a CUDA float32 [H, W]")
-    img = img.contiguous()
-    H, W = img.shape
-    out = torch.empty_like(img)
+# levels one K1 launch takes (kMaxLevels in kernels/csrc/fast.cu)
+_MAX_LEVELS = 8
+
+
+def fast_score_nms_levels_cuda(levels, t_hi: float, t_lo: float):
+    """Launch kernel K1 (kernels/csrc/fast.cu) once over 1 to 8 CUDA float32
+    [H_l, W_l] levels. Returns one [H_l, W_l] view per level of a single
+    output buffer."""
+    if not 1 <= len(levels) <= _MAX_LEVELS:
+        raise ValueError(f"K1 takes 1 to {_MAX_LEVELS} levels per launch")
+    device = levels[0].device
+    if not all(img.is_cuda and img.dtype == torch.float32 and img.dim() == 2
+               and img.device == device for img in levels):
+        raise ValueError("K1 takes CUDA float32 [H, W] levels on one device")
+    levels = [img.contiguous() for img in levels]
+    shapes = [img.shape for img in levels]
+    buf = torch.empty((sum(h * w for h, w in shapes),), dtype=torch.float32,
+                      device=device)
+    outs = [o.view(h, w) for o, (h, w) in zip(
+        buf.split([h * w for h, w in shapes]), shapes)]
+    table = np.array([(img.data_ptr(), o.data_ptr(), h, w)
+                      for img, o, (h, w) in zip(levels, outs, shapes)],
+                     dtype=np.int64)
     err = kernels.build.launcher("fast")(
-        img.data_ptr(), out.data_ptr(), H, W, float(t_hi), float(t_lo),
-        torch.cuda.current_stream(img.device).cuda_stream)
+        table.ctypes.data, len(levels), float(t_hi), float(t_lo),
+        torch.cuda.current_stream(device).cuda_stream)
     kernels.check_launch("fast", err)
-    return out
+    return outs
+
+
+def fast_score_nms_cuda(img, t_hi: float, t_lo: float):
+    """Kernel K1 on one CUDA float32 [H, W] level: the one-level launch."""
+    return fast_score_nms_levels_cuda([img], t_hi, t_lo)[0]
+
+
+def fast_score_nms_levels(levels, t_hi: float, t_lo: float):
+    """K1 on every level: one launch on CUDA tensors, the plain version per
+    level on CPU tensors."""
+    if levels[0].is_cuda:
+        return fast_score_nms_levels_cuda(levels, t_hi, t_lo)
+    return [fast_score_nms_torch(img, t_hi, t_lo) for img in levels]
 
 
 def fast_score_nms(img, t_hi: float, t_lo: float):
@@ -107,13 +138,16 @@ def fast_score_nms(img, t_hi: float, t_lo: float):
 
 def detect_level(img, threshold_high: float, threshold_low: float,
                  cell_size: int, per_cell_k: int, max_kps: int,
-                 edge_margin: int = 16) -> Keypoints:
+                 edge_margin: int = 16, score=None) -> Keypoints:
     """FAST corners on one pyramid level with spatial balancing: score at
     the low threshold (+bonus above the high one), per-cell top-k, then
-    global top-max_kps."""
+    global top-max_kps. `score`, where given, is the level's
+    fast_score_nms map at these thresholds, computed beforehand (as
+    make_frame does for all levels in one K1 launch)."""
     h, w = img.shape
     dev = img.device
-    s = fast_score_nms(img, threshold_high, threshold_low)
+    s = (fast_score_nms(img, threshold_high, threshold_low) if score is None
+         else score)
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
     inside = ((yy >= edge_margin) & (yy < h - edge_margin)

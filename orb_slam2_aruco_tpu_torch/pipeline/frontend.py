@@ -2,8 +2,8 @@
 
 Port of orb_slam2_aruco_tpu/pipeline/frontend.py (reference Frame::Frame,
 src/Frame.cc:74-181). `make_frame` runs eagerly on the image's device; on a
-CUDA tensor its three kernels are K1 (FAST, 8 calls), K2 (patches, 1 call
-for all 8 levels) and K3 (connected components, 1 call; with
+CUDA tensor its three kernels are K1 (FAST, 1 call for all 8 levels), K2
+(patches, 1 call for all 8 levels) and K3 (connected components, 1 call; with
 aruco.use_pallas_cc=False the quad proposal runs plain connected components
 instead).
 """
@@ -87,11 +87,14 @@ def make_frame(img, cam: Camera, cfg: SlamConfig) -> Frame:
     levels = image.build_pyramid(gray, ocfg.num_levels, ocfg.scale_factor)
     quotas = level_quotas(ocfg.num_features, ocfg.num_levels,
                           ocfg.scale_factor)
+    # one K1 launch for every level; per-level top-k on views of its output
+    scores = fast.fast_score_nms_levels(levels, ocfg.fast_threshold,
+                                        ocfg.fast_min_threshold)
     kps = [fast.detect_level(
         lvl_img, ocfg.fast_threshold, ocfg.fast_min_threshold,
         cell_size=ocfg.cell_size, per_cell_k=8, max_kps=quota,
-        edge_margin=ocfg.patch_radius + 1,
-    ) for lvl_img, quota in zip(levels, quotas)]
+        edge_margin=ocfg.patch_radius + 1, score=score,
+    ) for lvl_img, score, quota in zip(levels, scores, quotas)]
     blurred = [image.gaussian_blur(lvl_img, ocfg.blur_ksize, ocfg.blur_sigma)
                for lvl_img in levels]
     # one K2 launch for every level; angles and descriptors per level, on

@@ -62,6 +62,10 @@ K4_CASES = {
                         dict(passes=1, k_steps=16, tile=32)),
     "one_row": (lambda: np.pad(np.ones((1, 128), bool), ((3, 4), (0, 0))),
                 dict(passes=1, k_steps=8, tile=32)),
+    # the quad proposal's tile and steps on a shape that is no tile
+    # multiple (one ragged 128x128 tile + halo), two sweeps
+    "tile128_61x133": (lambda: np.random.default_rng(11).uniform(
+        size=(61, 133)) < 0.45, dict(passes=2, k_steps=16, tile=128)),
 }
 
 

@@ -82,9 +82,45 @@ def cuda_device():
 def test_fast_cuda_matches_plain(cuda_device):
     img = torch.as_tensor(rendered_level().astype(np.float32),
                           device=cuda_device)
-    got = fast.fast_score_nms_cuda(img, T_HI, T_LO)
+    got = fast.fast_score_nms_cuda(img, T_HI, T_LO)     # the L = 1 launch
     want = fast.fast_score_nms_torch(img, T_HI, T_LO)
     assert torch.equal(got[3:-3, 3:-3], want[3:-3, 3:-3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresholds", [(T_HI, T_LO), (5.0, 12.0)])
+def test_fast_levels_cuda_matches_plain(cuda_device, thresholds):
+    """One launch for the bench's 8 levels, with t_hi above and below t_lo,
+    equal to the plain version in every level's interior."""
+    levels = bench_pyramid(cuda_device)
+    kernels.reset_launch_counts()
+    got = fast.fast_score_nms_levels(levels, *thresholds)
+    assert kernels.launch_counts["fast"] == 1
+    found = 0
+    for lvl, g in zip(levels, got):
+        want = fast.fast_score_nms_torch(lvl, *thresholds)
+        assert torch.equal(g[3:-3, 3:-3], want[3:-3, 3:-3])
+        found += int((g > 1e6).sum())
+    assert found > 0                                # bonus corners too
+
+
+@pytest.mark.cuda
+def test_fast_levels_cuda_tiny_levels_are_zero(cuda_device):
+    """Levels narrower or shorter than 7 px have no pixel inside the 3-px
+    border: all zeros, in one launch with a normal level, and no fault."""
+    rng = np.random.default_rng(12)
+    shapes = [(40, 70), (5, 40), (40, 6), (1, 1), (6, 6), (7, 7)]
+    levels = [torch.as_tensor(rng.uniform(0, 255, s).astype(np.float32),
+                              device=cuda_device) for s in shapes]
+    got = fast.fast_score_nms_levels(levels, T_HI, T_LO)
+    torch.cuda.synchronize()
+    assert [tuple(g.shape) for g in got] == shapes
+    assert torch.equal(got[0][3:-3, 3:-3], fast.fast_score_nms_torch(
+        levels[0], T_HI, T_LO)[3:-3, 3:-3])
+    for g in got[1:-1]:
+        assert not g.any()
+    assert torch.equal(got[-1], fast.fast_score_nms_torch(levels[-1], T_HI,
+                                                          T_LO))
 
 
 @pytest.mark.cuda
@@ -100,24 +136,29 @@ def test_patches_cuda_matches_plain(cuda_device):
                        orb.extract_patches_torch(img, y0, x0))
 
 
-def bench_levels(device):
-    """The bench's 8 blurred pyramid levels of a rendered 960x540 frame
-    (widths 960, 800, 667, 556, ...) and their FAST keypoints at the bench's
-    quotas (1000 features)."""
+def bench_pyramid(device):
+    """The bench's 8 pyramid levels of a rendered 960x540 frame (widths
+    960, 800, 667, 556, ...)."""
     from orb_slam2_aruco_tpu_torch.config import CameraConfig
     from orb_slam2_aruco_tpu_torch.io import synthetic
     from orb_slam2_aruco_tpu_torch.ops import image
-    from orb_slam2_aruco_tpu_torch.pipeline.frontend import level_quotas
 
     world = synthetic.build_world([3, 17, 42, 99], px_per_m=500.0,
                                   spacing=0.6)
     R, t = synthetic.look_at_plane_pose((0.6, 0.3), 1.6, yaw=0.05)
     frame = np.clip(synthetic.render_view(world, CameraConfig(), R, t),
                     0, 255).astype(np.float32)
-    levels = image.build_pyramid(torch.as_tensor(frame, device=device), 8,
-                                 1.2)
+    return image.build_pyramid(torch.as_tensor(frame, device=device), 8, 1.2)
+
+
+def bench_levels(device):
+    """The bench's 8 pyramid levels, blurred, and their FAST keypoints at
+    the bench's quotas (1000 features)."""
+    from orb_slam2_aruco_tpu_torch.ops import image
+    from orb_slam2_aruco_tpu_torch.pipeline.frontend import level_quotas
+
     blurred, xys = [], []
-    for lvl, q in zip(levels, level_quotas(1000, 8, 1.2)):
+    for lvl, q in zip(bench_pyramid(device), level_quotas(1000, 8, 1.2)):
         kp = fast.detect_level(lvl, T_HI, T_LO, 32, 8, q, 16)
         blurred.append(image.gaussian_blur(lvl))
         xys.append(kp.xy)
@@ -176,19 +217,26 @@ def test_cc_cuda_prop_steps_match_plain(cuda_device, prop_steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k_steps", [8, 16])
+@pytest.mark.parametrize("shape", [(270, 480), (540, 960), (61, 133)])
 @pytest.mark.parametrize("case", ["random", "spiral", "marker_rings"])
-def test_cc_propagate_cuda_matches_plain(cuda_device, case):
+def test_cc_propagate_cuda_matches_plain(cuda_device, case, shape, k_steps):
+    """The clustered kernel (8 CTAs per 128-px tile, no padded copy) on
+    tile multiples and ragged shapes, after 1 and 3 sweeps."""
     rng = np.random.default_rng(7)
+    h, w = shape
     if case == "random":
-        binary = rng.uniform(size=(270, 480)) < 0.45
+        binary = rng.uniform(size=shape) < 0.45
     elif case == "spiral":
-        binary = spiral(200)
+        binary = np.zeros(shape, bool)
+        n = min(h, w, 200)
+        binary[:n, :n] = spiral(n)
     else:
-        binary = rings(rng, 270, 480)
+        binary = rings(rng, h, w)
     labels = torch.as_tensor(init_labels(binary), device=cuda_device)
     for passes in (1, 3):
-        got = cc_propagate.cc_propagate_cuda(labels, passes, 16, 128)
-        want = cc_propagate.cc_propagate_torch(labels, passes, 16, 128)
+        got = cc_propagate.cc_propagate_cuda(labels, passes, k_steps, 128)
+        want = cc_propagate.cc_propagate_torch(labels, passes, k_steps, 128)
         assert torch.equal(got, want)
 
 
@@ -209,13 +257,13 @@ def test_cc_propagate_raises_without_its_library(cuda_device, monkeypatch):
 def test_each_cuda_launch_is_counted_once(cuda_device):
     img = torch.rand((64, 160), device=cuda_device) * 255
     kernels.reset_launch_counts()
-    fast.fast_score_nms(img, T_HI, T_LO)
+    levels = [img, img[:, :80].contiguous()] * 4
+    fast.fast_score_nms_levels(levels, T_HI, T_LO)   # 8 levels, one launch
     xy = torch.tensor([[40.0, 30.0]], device=cuda_device)
-    orb.extract_patches_levels([img, img[:, :80].contiguous()] * 4,
-                               [xy] * 8)       # 8 levels, one launch
+    orb.extract_patches_levels(levels, [xy] * 8)     # 8 levels, one launch
     cc_fused.cc_fused(img > 128)
     labels = torch.as_tensor(init_labels(spiral(64)), device=cuda_device)
-    cc_propagate.cc_propagate(labels, 1, 16, 128)     # one sweep, one launch
+    cc_propagate.cc_propagate(labels, 3, 16, 128)    # one launch per sweep
     fast.fast_score_nms_torch(img, T_HI, T_LO)       # plain: not counted
     assert kernels.launch_counts == {"fast": 1, "patches": 1, "cc_fused": 1,
-                                     "cc_propagate": 1}
+                                     "cc_propagate": 3}

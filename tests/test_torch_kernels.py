@@ -1,4 +1,5 @@
-"""The port's three kernels against the JAX package's Pallas kernels.
+"""Three of the port's kernels against the JAX package's Pallas kernels (K4
+is held to its Pallas kernel in tests/test_torch_cc.py).
 
 On the CPU the port runs each kernel's plain PyTorch version
 (`fast_score_nms_torch`, `extract_patches_torch`, `cc_fused_torch`); they
@@ -6,7 +7,9 @@ are held to the Pallas kernels in interpret mode, as tests/test_ops.py and
 tests/test_pallas_cc.py run them:
 
   K1 FAST score + NMS: exact in rows/cols [3, H-3) x [3, W-3), where the
-     Pallas kernel and the XLA branch of ops/fast.py also agree;
+     Pallas kernel and the XLA branch of ops/fast.py also agree, one level
+     or all eight at once (fast_score_nms_levels, the kernel's per-frame
+     form);
   K2 patches: exact, one level or all eight at once (extract_patches_levels,
      the kernel's per-frame form), with the JAX package's corner rounding
      (half to even) and clipping;
@@ -30,7 +33,7 @@ from orb_slam2_aruco_tpu.ops.pallas_cc_fused import cc_fused as jcc_fused
 from orb_slam2_aruco_tpu.ops.pallas_fast import fast_score_nms as jfast_nms
 from orb_slam2_aruco_tpu.ops.pallas_patches import extract_patches_pallas
 from orb_slam2_aruco_tpu_torch import kernels
-from orb_slam2_aruco_tpu_torch.ops import cc_fused, fast, orb
+from orb_slam2_aruco_tpu_torch.ops import cc_fused, cc_propagate, fast, orb
 
 from test_torch_cuda import T_HI, T_LO, rendered_level, rings, spiral
 
@@ -62,6 +65,33 @@ def test_fast_plain_matches_pallas_and_xla(case):
     np.testing.assert_array_equal(plain[inner], xla[inner])
     assert (plain[inner] > 0).sum() > 10          # corners were found
     assert (plain[inner] > 1e6).sum() > 0         # and high-threshold ones
+
+
+def test_fast_levels_plain_matches_pallas_on_every_level():
+    from orb_slam2_aruco_tpu_torch.ops import image
+
+    levels = image.build_pyramid(
+        torch.as_tensor(rendered_level().astype(np.float32)), 8, 1.2)
+    got = fast.fast_score_nms_levels(levels, T_HI, T_LO)
+    assert [tuple(g.shape) for g in got] == [tuple(l.shape) for l in levels]
+    assert levels[-1].shape[1] < 60                  # down to the 8th level
+    for lvl, mine in zip(levels, got):
+        pallas = np.asarray(jfast_nms(jnp.asarray(lvl.numpy()), T_HI, T_LO,
+                                      interpret=True))
+        inner = (slice(3, -3), slice(3, -3))
+        # exact, no tolerance: same circle order, same float32 operations
+        np.testing.assert_array_equal(mine.numpy()[inner], pallas[inner])
+    assert sum(int((g > 0).sum()) for g in got) > 20
+
+
+def test_detect_level_takes_a_precomputed_score():
+    img = torch.as_tensor(rendered_level().astype(np.float32))
+    score = fast.fast_score_nms_levels([img], T_HI, T_LO)[0]
+    want = fast.detect_level(img, T_HI, T_LO, 32, 8, 64, 16)
+    got = fast.detect_level(img, T_HI, T_LO, 32, 8, 64, 16, score=score)
+    assert int(want.valid.sum()) > 10
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_patches_plain_matches_pallas_and_dynamic_slice():
@@ -195,6 +225,10 @@ def test_cuda_bindings_refuse_cpu_tensors():
     idx = torch.zeros((3,), dtype=torch.int32)
     with pytest.raises(ValueError):
         fast.fast_score_nms_cuda(img, T_HI, T_LO)
+    with pytest.raises(ValueError):
+        fast.fast_score_nms_levels_cuda([img, img[:20]], T_HI, T_LO)
+    with pytest.raises(ValueError):
+        cc_propagate.cc_propagate_cuda(idx.reshape(1, 3), 1, 16, 128)
     with pytest.raises(ValueError):
         orb.extract_patches_cuda(img, idx, idx)
     with pytest.raises(ValueError):

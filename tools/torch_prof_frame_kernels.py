@@ -10,9 +10,13 @@ WALL_FRAMES times on the host clock (each ending in a synchronize; prints
 the median and quartiles), then FRAMES times under the profiler. Prints
 the device kernels and copies per frame in all and, for each of the port's
 kernels (K1 fast, K2 patches, K3 cc_fused), the launches per frame and the
-mean device microseconds of each launch in launch order. --root imports the package from another checkout
-(for example a copy of an earlier commit), so two versions of the kernels
-can be compared; the reference data is this checkout's. --downsample sets
+mean device microseconds of each launch in launch order. It also times K1's
+wrapper on the frame's 8 pyramid levels (CUDA events, host time included):
+one fast_score_nms_levels call, or, in a package from before it, one
+fast_score_nms_cuda call per level. --root imports the package from
+another checkout (for example a copy of an earlier commit), so two versions
+of the kernels can be compared; the reference data is this checkout's.
+--downsample sets
 aruco.detect_downsample (the bench's 2, the default configuration's 1).
 Needs a CUDA GPU.
 """
@@ -52,6 +56,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam2_aruco_tpu_torch.geometry.camera import camera_from_config
+    from orb_slam2_aruco_tpu_torch.ops import fast, image
     from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
 
     chip_smoke.device_phase()
@@ -73,6 +78,19 @@ def main() -> int:
           f"ms, quartiles {statistics.quantiles(wall)[0] * 1e3:.2f}-"
           f"{statistics.quantiles(wall)[2] * 1e3:.2f} ms over {WALL_FRAMES} "
           f"frames (host clock, synchronized)")
+    ocfg = cfg.orb
+    levels = image.build_pyramid(img.to(torch.float32), ocfg.num_levels,
+                                 ocfg.scale_factor)
+    t = (ocfg.fast_threshold, ocfg.fast_min_threshold)
+    if hasattr(fast, "fast_score_nms_levels"):
+        def k1():
+            return fast.fast_score_nms_levels(levels, *t)
+    else:
+        def k1():
+            return [fast.fast_score_nms_cuda(lvl, *t) for lvl in levels]
+    print(f"K1 wrapper per frame ({len(levels)} levels): "
+          f"{chip_smoke.cuda_ms(k1, reps=WALL_FRAMES * 5):.4f} ms (CUDA "
+          f"events, median of {WALL_FRAMES * 5} calls)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(FRAMES):
