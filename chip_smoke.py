@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives orb_slam2_aruco_tpu_torch's paths — localization against a saved map
-— at the bench configuration (960x540, 1000 ORB features, 8 levels,
-detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
+and SLAM mode — at the bench configuration (960x540, 1000 ORB features, 8
+levels, detect_downsample=2, 256-keyframe / 20000-point / 64-marker map
+capacity), in phases:
 
   1. device   CUDA must be available (no CPU fallback); prints the card's
               name and power limit as nvidia-smi reports them.
@@ -44,13 +45,32 @@ detect_downsample=2, 256-keyframe / 20000-point map capacity), in phases:
               fps, the median per-chunk latency (bench.py:205-208), host
               syncs per chunk and rewinds; then one more chunk, of
               DEBUG_FRAMES frames, under torch's sync debug mode counts
-              every synchronizing call: at most MAX_DEBUG_SYNCS.
-  7. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+              every synchronizing call the port makes: at most
+              MAX_DEBUG_SYNCS.
+  7. slam     SLAM mode (tracking.pipeline_depth 0) from an empty map over
+              the 32 frames of the sweep (SlamSystem.track_monocular: two-
+              view initialization, tracking, keyframe inserts with the
+              whole mapping phase and local BA). Every frame's state, the
+              keyframe-insert frames and count equal to the JAX package's
+              recorded depth-0 run, poses within 0.5 deg / 2 cm of its
+              poses, the valid point count within 5 %, the ATE at most
+              max(1.5 x, +5 mm) of its ATE; then the 32 mid-point frames
+              localized against the port-built map: states equal to the
+              JAX localization against its own map, poses within the same
+              limits. Prints SLAM fps after initialization, the per-frame
+              frontend / tracking / mapping split, host syncs per frame,
+              keyframes, points and BA runs. Then the 32 frames once more
+              on a fresh system under torch's sync debug mode, and one
+              classic (marker-free) two-view initialization: every
+              synchronizing call by site, at most MAX_SLAM_SYNCS and
+              MAX_CLASSIC_INIT_SYNCS.
+  8. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
-Launch counts are zeroed just before each of slice, quads and stream and
-read just after: each must have launched the kernels of its path (K1-K3 on
-slice and stream, K4 on quads), and K1, K2 and K3 once per frame built.
+Launch counts are zeroed just before each of slice, quads, stream and slam
+and read just after: each must have launched the kernels of its path (K1-K3
+on slice, stream and slam, K4 on quads), and K1, K2 and K3 once per frame
+built.
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -59,6 +79,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import linecache
 import os
 import statistics
 import subprocess
@@ -73,14 +94,30 @@ DEVICE = "cuda"
 # tolerance of the port against the JAX package's recorded localization
 ROT_TOL_DEG = 0.2
 TRANS_TOL_M = 0.01
+# and against its recorded SLAM run: poses, and the valid point count
+SLAM_ROT_TOL_DEG = 0.5
+SLAM_TRANS_TOL_M = 0.02
+SLAM_POINTS_TOL = 0.05
 
 # frames of the two untimed measurements, kept short for the script's time:
 # the slice's frontend / tracking split and the stream's sync-debug chunk
 SPLIT_FRAMES = 12
 DEBUG_FRAMES = 16
+# frames of the SLAM split run: the initialization (frame 6) and the
+# second insert (frame 13) of the recorded run
+SLAM_SPLIT_FRAMES = 16
 # synchronizing calls the debug chunk may make: the count when this limit
-# was set (a change may remove such calls, never add them)
-MAX_DEBUG_SYNCS = 660
+# was set (a change may remove such calls, never add them). 660 until the
+# constants of the per-frame path were made once per device; since then
+# the chunk's one control read. Calls the debug mode's own switching
+# reports (measured around an empty window) are not the port's.
+MAX_DEBUG_SYNCS = 1
+# the same for the SLAM run's 32 frames under the debug mode: its 92
+# deliberate host reads (tracking.SYNCS) and the plane update's eigh, which
+# checks cuSOLVER's error code on the host; and for one classic
+# initialization: its 10 SVDs, which do the same
+MAX_SLAM_SYNCS = 93
+MAX_CLASSIC_INIT_SYNCS = 10
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -98,6 +135,7 @@ PATH_KERNELS = {
     "slice": ("fast", "patches", "cc_fused"),
     "quads": ("cc_propagate",),
     "stream": ("fast", "patches", "cc_fused"),
+    "slam": ("fast", "patches", "cc_fused"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and float32
@@ -270,17 +308,27 @@ def load_reference():
     z = np.load(path)
     ref = {k: z[k] for k in z.files if k.startswith("ref_")}
     cfg = SlamConfig.from_dict(json.loads(str(ref["ref_cfg"])))
+    return path, cfg, ref, render(cfg, ref, "ref_loc_params")
+
+
+def render(cfg, ref, key):
+    """uint8 frames of the recorded world at the render parameters
+    ref[key] (x, y, distance, yaw, pitch), by the port's io/synthetic."""
+    import numpy as np
+
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+
     w = json.loads(str(ref["ref_world"]))
     world = synthetic.build_world(
         w["marker_ids"], dict_name=cfg.aruco.dictionary,
         marker_size=w["marker_size"], grid_cols=w["grid_cols"],
         spacing=w["spacing"], px_per_m=w["px_per_m"])
     imgs = []
-    for x, y, d, yaw, pitch in ref["ref_loc_params"]:
+    for x, y, d, yaw, pitch in ref[key]:
         R, t = synthetic.look_at_plane_pose((x, y), d, yaw=yaw, pitch=pitch)
         imgs.append(np.clip(synthetic.render_view(world, cfg.camera, R, t),
                             0, 255).astype(np.uint8))
-    return path, cfg, ref, imgs
+    return imgs
 
 
 def quad_binary(img_np, cfg, ds):
@@ -743,29 +791,253 @@ def stream_phase(path, cfg, ref, imgs):
           f"rewinds {rewinds}")
 
     # every synchronizing call of one more chunk (not timed)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for _ in system.localize_stream(
-                    StagedSource(frames[:DEBUG_FRAMES], batch=DEBUG_FRAMES,
-                                 device=DEVICE),
-                    chunk=DEBUG_FRAMES, depth=depth):
-                pass
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    where = collections.Counter(
-        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
-    n_sync = sum(where.values())
+    src = StagedSource(frames[:DEBUG_FRAMES], batch=DEBUG_FRAMES,
+                       device=DEVICE)
+    n_sync, where = port_sync_calls(lambda: list(system.localize_stream(
+        src, chunk=DEBUG_FRAMES, depth=depth)))
     phase("stream", f"sync debug mode, one chunk of {DEBUG_FRAMES}: "
           f"{n_sync} synchronizing calls ({n_sync / DEBUG_FRAMES:.2f} per "
-          f"frame); most frequent {where.most_common(6)}")
+          f"frame); by site: {sites(where)}")
     if n_sync > MAX_DEBUG_SYNCS:
         raise PhaseError(f"{n_sync} synchronizing calls in the debug chunk, "
                          f"above {MAX_DEBUG_SYNCS}")
     return counts
+
+
+def sync_calls(fn):
+    """The synchronizing calls torch's sync debug mode reports while fn()
+    runs: Counter of (file, line) sites."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return collections.Counter((w.filename, w.lineno) for w in caught
+                               if "synchroniz" in str(w.message))
+
+
+def sites(where):
+    """The sites of a sync_calls Counter, most frequent first."""
+    return "; ".join(f"{os.path.relpath(f, HERE)}:{n} x{c} "
+                     f"({linecache.getline(f, n).strip()!r})"
+                     for (f, n), c in where.most_common())
+
+
+def port_sync_calls(fn):
+    """(count, sites) of fn's synchronizing calls. An empty window goes
+    first: the first switch into the debug mode in a process reports one
+    call inside torch.cuda itself, which is not the port's."""
+    baseline = sync_calls(lambda: None)
+    where = sync_calls(fn)
+    where.subtract(baseline)
+    where = +where
+    return sum(where.values()), where
+
+
+def pose_errors(poses, ref_R, ref_t):
+    """Worst rotation (deg) and translation (m) of the non-None poses
+    against the recorded ones."""
+    import numpy as np
+
+    worst_r = worst_t = 0.0
+    for i, p in enumerate(poses):
+        if p is None:
+            continue
+        worst_r = max(worst_r, rot_err_deg(p[0], ref_R[i]))
+        worst_t = max(worst_t, float(np.linalg.norm(
+            np.asarray(p[1], np.float64) - ref_t[i])))
+    return worst_r, worst_t
+
+
+def slam_phase(cfg, ref, loc_imgs):
+    """SLAM mode over the 32 map frames against the recorded JAX depth-0 run,
+    then localization against the port-built map. Returns the kernel launch
+    counts of the SLAM run."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
+    from orb_slam2_aruco_tpu_torch.pipeline.system import (
+        SlamSystem,
+        TrackingState,
+    )
+
+    scfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                    pipeline_depth=0))
+    imgs = render(scfg, ref, "ref_map_params")
+    system = SlamSystem(scfg, device=DEVICE)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.SYNCS["count"] = 0
+    poses, states, inserts, frame_s = [], [], [], []
+    for i, img in enumerate(imgs):
+        before = system.stats["kf_inserted"]
+        t0 = time.perf_counter()
+        poses.append(system.track_monocular(img, ts=i / 30.0))
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        states.append(system.state.value)
+        inserts.append(system.stats["kf_inserted"] - before)
+    counts = dict(kernels.launch_counts)
+    syncs = tracking.SYNCS["count"]
+    n_points = int(system.map.pt_valid.sum())
+    phase("slam", f"kernel launches in the SLAM run: {counts}")
+    check_launches("slam", counts)
+    check_frames_built("slam", counts, len(imgs))
+
+    want_states = ref["ref_slam_state"].tolist()
+    if states != want_states:
+        raise PhaseError(f"SLAM states differ from the JAX run: port "
+                         f"{states} vs JAX {want_states}")
+    got_ins = np.flatnonzero(inserts).tolist()
+    want_ins = np.flatnonzero(ref["ref_slam_kf_insert"]).tolist()
+    fids, _, _, _ = system.keyframe_trajectory()
+    if got_ins != want_ins or fids.tolist() != ref["ref_slam_kf_fid"].tolist():
+        raise PhaseError(f"keyframe inserts at {got_ins} (keyframes "
+                         f"{fids.tolist()}) vs the JAX run's {want_ins} "
+                         f"({ref['ref_slam_kf_fid'].tolist()})")
+    worst_r, worst_t = pose_errors(poses, ref["ref_slam_R"],
+                                   ref["ref_slam_t"])
+    if worst_r > SLAM_ROT_TOL_DEG or worst_t > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"SLAM poses off the JAX run: {worst_r:.4f} deg, "
+                         f"{worst_t * 100:.4f} cm (limits {SLAM_ROT_TOL_DEG}"
+                         f" deg, {SLAM_TRANS_TOL_M * 100} cm)")
+    want_pts = int(ref["ref_slam_n_points"][-1])
+    if abs(n_points - want_pts) > SLAM_POINTS_TOL * want_pts:
+        raise PhaseError(f"{n_points} valid map points vs the JAX run's "
+                         f"{want_pts} (limit {SLAM_POINTS_TOL:.0%})")
+    ok = np.asarray(states) == TrackingState.OK.value
+    idx = np.flatnonzero(ok)
+    est_c = trajectory.camera_centers([poses[i][0] for i in idx],
+                                      [poses[i][1] for i in idx])
+    gt_c = trajectory.camera_centers(ref["ref_slam_gt_R"][ok],
+                                     ref["ref_slam_gt_t"][ok])
+    ate = trajectory.ate_rmse(est_c, gt_c, align=True, with_scale=False)
+    ref_ate = float(ref["ref_slam_ate"])
+    limit = max(1.5 * ref_ate, ref_ate + 0.005)
+    if not np.isfinite(ate) or ate > limit:
+        raise PhaseError(f"SLAM ATE {ate:.5f} m above {limit:.5f} m (JAX "
+                         f"{ref_ate:.5f} m)")
+    first_ok = int(idx[0])
+    after = frame_s[first_ok + 1:]
+    phase("slam", f"{len(imgs)} frames, states and keyframe inserts {got_ins}"
+          f" (keyframes {fids.tolist()}) equal to JAX; poses within "
+          f"{worst_r:.5f} deg / {worst_t * 100:.5f} cm of JAX; {n_points} "
+          f"valid points (JAX {want_pts}); ATE {ate * 1000:.3f} mm (JAX "
+          f"{ref_ate * 1000:.3f} mm, limit {limit * 1000:.3f} mm)")
+    phase("slam", f"SLAM: {len(after) / sum(after):.2f} fps over the "
+          f"{len(after)} frames after initialization (frame {first_ok}); "
+          f"initialization frame {frame_s[first_ok] * 1000:.1f} ms; median "
+          f"frame {statistics.median(after) * 1000:.1f} ms; insert frames "
+          f"{[round(frame_s[i] * 1000, 1) for i in got_ins]} ms; host syncs "
+          f"{syncs} = {syncs / len(imgs):.2f} per frame; keyframes "
+          f"{system.n_keyframes}, points {n_points}, BA runs "
+          f"{system.stats['ba_runs']}, stats {system.stats}")
+
+    # localization against the port-built map
+    loc = SlamSystem(scfg, device=DEVICE)
+    loc.set_map(system.map)
+    lposes = [loc.track_monocular(img, ts=100.0 + i / 30.0)
+              for i, img in enumerate(loc_imgs)]
+    lok = [p is not None for p in lposes]
+    if lok != ref["ref_slam_loc_ok"].tolist():
+        raise PhaseError(f"localization against the port-built map: states"
+                         f" {lok} vs the JAX run's "
+                         f"{ref['ref_slam_loc_ok'].tolist()}")
+    lr, lt = pose_errors(lposes, ref["ref_slam_loc_R"], ref["ref_slam_loc_t"])
+    if lr > SLAM_ROT_TOL_DEG or lt > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"localization against the port-built map off the "
+                         f"JAX run: {lr:.4f} deg, {lt * 100:.4f} cm")
+    phase("slam", f"localization of {len(loc_imgs)} frames against the "
+          f"port-built map: {sum(lok)} OK (= JAX); poses within {lr:.5f} "
+          f"deg / {lt * 100:.5f} cm of JAX's against its own map")
+
+    slam_sync_phase(scfg, imgs)
+
+    # frontend / tracking / mapping split, on a second system (not counted)
+    split = SlamSystem(scfg, device=DEVICE)
+    insert = split._insert_keyframe
+    map_s = []
+
+    def timed_insert(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = insert(*a, **k)
+        torch.cuda.synchronize()
+        map_s.append(time.perf_counter() - t)
+        return out
+
+    split._insert_keyframe = timed_insert
+    rows = []
+    for i, img in enumerate(imgs[:SLAM_SPLIT_FRAMES]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = make_frame(torch.as_tensor(img).to(DEVICE), split.cam, scfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_map = len(map_s)
+        split._step_frame(frame, i, i / 30.0)
+        torch.cuda.synchronize()
+        m = sum(map_s[n_map:])
+        rows.append((i, (t1 - t0) * 1e3, (time.perf_counter() - t1 - m) * 1e3,
+                     m * 1e3))
+    tracked = [r for r in rows if r[0] > first_ok]
+    phase("slam", "split per frame (ms): " + "; ".join(
+        f"{i}: fe {a:.1f} tr {b:.1f} map {c:.1f}" for i, a, b, c in rows))
+    phase("slam", f"split medians over frames {first_ok + 1}-"
+          f"{SLAM_SPLIT_FRAMES - 1}: frontend "
+          f"{statistics.median(r[1] for r in tracked):.2f} ms, tracking "
+          f"{statistics.median(r[2] for r in tracked):.2f} ms; mapping "
+          f"{[round(r[3], 1) for r in rows if r[3] > 0]} ms per insert")
+    return counts
+
+
+def slam_sync_phase(scfg, imgs):
+    """Every synchronizing call of SLAM mode: the 32 frames on a fresh
+    system under the sync debug mode (per frame, then by site), and one
+    classic two-view initialization between frames 0 and 2 (the path a
+    start without a common marker takes), after a first one that makes its
+    constants. Not timed."""
+    import torch
+
+    from orb_slam2_aruco_tpu_torch.pipeline import initializer
+    from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    system = SlamSystem(scfg, device=DEVICE)
+    sync_calls(lambda: None)          # the debug mode's own first report
+    where, per_frame = collections.Counter(), []
+    for i, img in enumerate(imgs):
+        got = sync_calls(lambda: system.track_monocular(img, ts=i / 30.0))
+        per_frame.append(sum(got.values()))
+        where.update(got)
+    n_sync = sum(per_frame)
+    phase("slam", f"sync debug mode, {len(imgs)} SLAM frames: {n_sync} "
+          f"synchronizing calls ({n_sync / len(imgs):.2f} per frame); per "
+          f"frame {per_frame}; by site: {sites(where)}")
+    if n_sync > MAX_SLAM_SYNCS:
+        raise PhaseError(f"{n_sync} synchronizing calls in the SLAM run, "
+                         f"above {MAX_SLAM_SYNCS}")
+    f0, f2 = (make_frame(torch.as_tensor(imgs[i]).to(DEVICE), system.cam,
+                         scfg) for i in (0, 2))
+    initializer.classic_relative_pose(f0, f2, system.cam, scfg)  # warm
+    torch.cuda.synchronize()
+    n_init, where = port_sync_calls(lambda: initializer.classic_relative_pose(
+        f0, f2, system.cam, scfg).ctrl)
+    phase("slam", f"sync debug mode, one classic initialization: {n_init} "
+          f"synchronizing calls; by site: {sites(where)}")
+    if n_init > MAX_CLASSIC_INIT_SYNCS:
+        raise PhaseError(f"{n_init} synchronizing calls in the classic "
+                         f"initialization, above {MAX_CLASSIC_INIT_SYNCS}")
 
 
 def main() -> int:
@@ -783,7 +1055,8 @@ def main() -> int:
         kres = kernel_phase(cfg, imgs[0])
         by_path = {"slice": slice_phase(path, cfg, ref, imgs),
                    "quads": quads_phase(cfg, ref, imgs),
-                   "stream": stream_phase(path, cfg, ref, imgs)}
+                   "stream": stream_phase(path, cfg, ref, imgs),
+                   "slam": slam_phase(cfg, ref, imgs)}
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam2_aruco_tpu_torch.geometry.lie import hat
+from orb_slam2_aruco_tpu_torch.utils.consts import const
 
 
 class IppeResult(NamedTuple):
@@ -27,10 +28,9 @@ class IppeResult(NamedTuple):
 def square_object_points(side, dtype=torch.float32, device="cpu"):
     """Canonical marker corners on z=0 (MapAruco.cc:30-37 winding)."""
     h = side / 2.0
-    return torch.tensor(
+    return const(("square", float(side), dtype), device, lambda: torch.tensor(
         [[-h, h, 0.0], [h, h, 0.0], [h, -h, 0.0], [-h, -h, 0.0]],
-        dtype=dtype, device=device,
-    )
+        dtype=dtype))
 
 
 def _solve(A, b):
@@ -67,8 +67,9 @@ def _rotate_vec_to_z(v):
     theta = torch.atan2(s, c)
     R = (eye + torch.sin(theta)[..., None, None] * K
          + (1.0 - torch.cos(theta))[..., None, None] * (K @ K))
-    flip = torch.tensor([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]],
-                        dtype=v.dtype, device=v.device).expand(K.shape)
+    flip = const(("flip_yz", v.dtype), v.device, lambda: torch.tensor(
+        [[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]],
+        dtype=v.dtype)).expand(K.shape)
     R_small = torch.where(c[..., None, None] > 0, eye, flip)
     return torch.where(small[..., None, None], R_small, R)
 

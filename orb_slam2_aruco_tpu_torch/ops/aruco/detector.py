@@ -27,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orb_slam2_aruco_tpu_torch.geometry.ippe import homography_4pt
@@ -38,6 +39,7 @@ from orb_slam2_aruco_tpu_torch.ops.cc_fused import cc_fused
 from orb_slam2_aruco_tpu_torch.ops.cc_propagate import cc_propagate
 from orb_slam2_aruco_tpu_torch.ops.image import box_filter
 from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
+from orb_slam2_aruco_tpu_torch.utils.consts import const
 
 
 class DetectedMarkers(NamedTuple):
@@ -246,8 +248,9 @@ def _quad_sample_points(quads, grid_cells: int, cell_px: int):
     K = quads.shape[0]
     S = grid_cells * cell_px
     dev = quads.device
-    src = torch.tensor([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]],
-                       dtype=torch.float32, device=dev).expand(K, 4, 2)
+    src = const("unit_square", dev, lambda: np.asarray(
+        [[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]],
+        np.float32)).expand(K, 4, 2)
     H = homography_4pt(src, quads)
     u = (torch.arange(S, dtype=torch.float32, device=dev) + 0.5) / S
     vv, uu = torch.meshgrid(u, u, indexing="ij")
@@ -293,10 +296,11 @@ def sample_batched_mxu(img, px, py, crop: int = 128):
     oy = torch.floor((mn_y - 4.0) / scale)
     # all levels in one flat buffer; per element: base offset and shape
     flat = torch.cat([lv.reshape(-1) for lv in levels])
-    hs = torch.tensor([lv.shape[0] for lv in levels], device=dev)
-    ws = torch.tensor([lv.shape[1] for lv in levels], device=dev)
-    bases = torch.tensor([0] + [lv.numel() for lv in levels[:-1]],
-                         device=dev).cumsum(0)
+    shapes = tuple(tuple(lv.shape) for lv in levels)
+    table = const(("level_table", shapes), dev, lambda: np.asarray(
+        [[h for h, _ in shapes], [w for _, w in shapes],
+         np.cumsum([0] + [h * w for h, w in shapes[:-1]])], np.int64))
+    hs, ws, bases = table[0], table[1], table[2]
     hl, wl, base = hs[lvl], ws[lvl], bases[lvl]                     # [K]
     oxi = torch.minimum(torch.clamp(ox.to(torch.int64), min=0),
                         torch.clamp(wl - crop, min=0))
@@ -428,9 +432,9 @@ def _principal_direction(cxx, cxy, cyy):
     n2 = torch.linalg.norm(v2, dim=-1, keepdim=True)
     v = torch.where(n1 >= n2, v1, v2)
     n = torch.maximum(n1, n2)
-    axis = torch.where((cxx >= cyy)[..., None],
-                       torch.tensor([1.0, 0.0], device=cxx.device),
-                       torch.tensor([0.0, 1.0], device=cxx.device))
+    unit = const("unit_axes", cxx.device,
+                 lambda: np.eye(2, dtype=np.float32))
+    axis = torch.where((cxx >= cyy)[..., None], unit[0], unit[1])
     return torch.where(n > 1e-12, v / torch.clamp(n, min=1e-30), axis)
 
 

@@ -17,6 +17,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from orb_slam2_aruco_tpu_torch.utils.consts import const
+
 _DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))),
@@ -62,17 +64,10 @@ def rotated_code_table(name: str):
     return table, np.asarray(ids, np.int32), np.asarray(rots, np.int32)
 
 
-_device_tables = {}
-
-
 def decode_bits(bits, name: str):
     """bits [Q, nbits] float in [0,1] -> (ids [Q], rots [Q], dist [Q])."""
-    key = (name, str(bits.device))
-    if key not in _device_tables:
-        _device_tables[key] = tuple(
-            torch.as_tensor(a).to(bits.device)
-            for a in rotated_code_table(name))
-    table, ids, rots = _device_tables[key]
+    table, ids, rots = const(("code_table", name), bits.device,
+                             lambda: rotated_code_table(name))
     agree = (bits.float() * 2.0 - 1.0) @ table.T
     dist = (table.shape[1] - agree) * 0.5
     best = torch.argmin(dist, dim=-1)

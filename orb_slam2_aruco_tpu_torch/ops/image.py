@@ -11,11 +11,12 @@ differently.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from orb_slam2_aruco_tpu_torch.utils.consts import const
 
 
 def pyramid_shapes(h: int, w: int, num_levels: int,
@@ -26,7 +27,6 @@ def pyramid_shapes(h: int, w: int, num_levels: int,
     ]
 
 
-@lru_cache(maxsize=64)
 def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     """[n_in, n_out] float32 antialiased linear resampling weights, as
     jax.image.resize computes them (scale = n_out / n_in, translation 0)."""
@@ -47,7 +47,8 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
 
 
 def _weights_on(n_in, n_out, device):
-    return torch.as_tensor(resize_weights(n_in, n_out), device=device)
+    return const(("resize_weights", n_in, n_out), device,
+                 lambda: resize_weights(n_in, n_out))
 
 
 def build_pyramid(img, num_levels: int, scale: float):
@@ -87,7 +88,6 @@ def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
     return _sep_filter_shift(img, k / k.sum())
 
 
-@lru_cache(maxsize=32)
 def _band_np(n: int, r: int) -> np.ndarray:
     i = np.arange(n)
     return (np.abs(i[:, None] - i[None, :]) <= r).astype(np.float32)
@@ -103,8 +103,8 @@ def box_filter(img, ksize: int):
     h, w = img.shape
     r = ksize // 2
     f = img.to(torch.float32)
-    s = torch.as_tensor(_band_np(h, r), device=img.device) @ f
-    s = s @ torch.as_tensor(_band_np(w, r), device=img.device)
+    s = const(("band", h, r), img.device, lambda: _band_np(h, r)) @ f
+    s = s @ const(("band", w, r), img.device, lambda: _band_np(w, r))
 
     def extent(n):
         i = torch.arange(n, dtype=torch.float32, device=img.device)

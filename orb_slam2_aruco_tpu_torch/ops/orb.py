@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from orb_slam2_aruco_tpu_torch import kernels
+from orb_slam2_aruco_tpu_torch.utils.consts import const
 
 PATCH_RADIUS = 15
 NUM_BITS = 256
@@ -84,21 +85,16 @@ def _steered_sep_tables():
     return Wy, Wx
 
 
-_device_tables = {}
-
-
 def _tables_on(device):
     """The steering tables rounded to bf16 (as the reference feeds them to
-    the MXU), held in float32 on `device`."""
-    key = str(device)
-    if key not in _device_tables:
+    the MXU), held in float32 on `device`; the moment kernels."""
+    def make():
         Wy, Wx = _steered_sep_tables()
         kx, ky = _moment_kernels_patch32()
         as_bf16 = lambda a: torch.as_tensor(a).to(torch.bfloat16).float()  # noqa
-        _device_tables[key] = tuple(
-            t.to(device) for t in (as_bf16(Wy), as_bf16(Wx),
-                                   torch.as_tensor(kx), torch.as_tensor(ky)))
-    return _device_tables[key]
+        return as_bf16(Wy), as_bf16(Wx), kx, ky
+
+    return const("orb_tables", device, make)
 
 
 def extract_patches_torch(img, y0, x0, patch: int = _PATCH):
@@ -237,16 +233,9 @@ def describe_patches(patches, angles):
     return pack_bits(bits)
 
 
-_device_shifts = {}
-
-
 def _shifts_on(device):
     """The bit positions 0..31 as int64 on `device`, made there once."""
-    key = str(device)
-    if key not in _device_shifts:
-        _device_shifts[key] = torch.arange(32, dtype=torch.int64,
-                                           device=device)
-    return _device_shifts[key]
+    return const("bit_shifts", device, lambda: np.arange(32, dtype=np.int64))
 
 
 def pack_bits(bits):

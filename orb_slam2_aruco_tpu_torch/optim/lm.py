@@ -12,6 +12,12 @@ from __future__ import annotations
 import torch
 
 
+def diag_embed(d):
+    """[..., n] -> [..., n, n] diagonal matrices."""
+    return d[..., None] * torch.eye(d.shape[-1], dtype=d.dtype,
+                                    device=d.device)
+
+
 def solve_damped(H, b, lam):
     """Solve (H + lam*diag(H) + 1e-10*I) dx = b, batched; non-finite
     solutions (empty problems) become zero steps."""

@@ -72,7 +72,7 @@ def optimize_pose(Rcw0, tcw0, cam: Camera, pts_w, uv, mask, inv_sigma2,
     for rd in range(rounds):
         w = edge_weights(inlier_w)
         chi2_cur = torch.sum(r2 * w)
-        lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+        lam = torch.full((), lam0, dtype=torch.float32, device=dev)
         stall = torch.zeros((), dtype=torch.int64, device=dev)
         for _ in range(iters_per_round):
             active = stall < 2

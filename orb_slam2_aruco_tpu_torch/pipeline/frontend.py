@@ -22,6 +22,7 @@ from orb_slam2_aruco_tpu_torch.geometry.ippe import ippe_square
 from orb_slam2_aruco_tpu_torch.ops import fast, image, orb
 from orb_slam2_aruco_tpu_torch.ops.aruco import detector
 from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
+from orb_slam2_aruco_tpu_torch.utils.consts import const
 from orb_slam2_aruco_tpu_torch.worldmap.retrieval import bow_vector
 
 
@@ -74,8 +75,9 @@ def level_quotas(n_features: int, num_levels: int, scale: float):
 
 def scale_sigma2(num_levels: int, scale: float, device="cpu"):
     """Per-octave inverse variances (Frame::mvInvLevelSigma2)."""
-    return torch.tensor([1.0 / (scale ** (2 * l)) for l in range(num_levels)],
-                        dtype=torch.float32, device=device)
+    return const(("scale_sigma2", num_levels, scale), device,
+                 lambda: np.asarray([1.0 / (scale ** (2 * l))
+                                     for l in range(num_levels)], np.float32))
 
 
 def make_frame(img, cam: Camera, cfg: SlamConfig) -> Frame:

@@ -56,6 +56,13 @@ def host_sync(x) -> bool:
     return bool(x)
 
 
+def host_read(x):
+    """A tensor's values as numpy on the host (a device sync on CUDA),
+    counted in SYNCS."""
+    SYNCS["count"] += 1
+    return x.detach().cpu().numpy()
+
+
 class TrackResult(NamedTuple):
     Rcw: torch.Tensor
     tcw: torch.Tensor
@@ -89,11 +96,21 @@ def _scatter_max(N: int, tgt, src):
     return buf.scatter_reduce(0, tgt, src, "amax", include_self=True)[:N]
 
 
-def _mark(L: int, idx):
-    """[L] bool: True at every index idx >= 0 (entries < 0 are dropped)."""
+def row(a, k):
+    """a[k] for an int or a device scalar k; a tensor index goes through a
+    1-element index_select (indexing with a 0-d tensor reads it on the
+    host)."""
+    if isinstance(k, torch.Tensor):
+        return a.index_select(0, k.reshape(1))[0]
+    return a[k]
+
+
+def mark(L: int, idx, val=None):
+    """[L] bool: True at idx where val holds (default: idx >= 0); the other
+    entries go to a dump slot that is cut off."""
+    ok = (idx >= 0) if val is None else val
     buf = torch.zeros((L + 1,), dtype=torch.bool, device=idx.device)
-    buf[torch.where(idx >= 0, idx, L)] = True
-    return buf[:L]
+    return buf.index_fill_(0, torch.where(ok, idx, L), True)[:L]
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +192,9 @@ def aruco_pose_candidate(state: MapState, frame: Frame, slots, cam: Camera,
     errs = (err * m_flat[None]).sum(dim=-1) / wsum              # [A]
     errs = torch.where(cand_ok, errs, 1e9)
     best = torch.argmin(errs)
+    e = row(errs, best)
     th = cfg.aruco.well_tracked_reproj_err if err_th is None else err_th
-    return errs[best] < th, Rc[best], tc[best], errs[best]
+    return e < th, row(Rc, best), row(tc, best), e
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +212,7 @@ def local_point_mask(state: MapState, obs_point, max_local_kfs: int):
     keyframes (UpdateLocalKeyFrames <= 80, Tracking.cc:1555-1663) and the
     keyframe sharing the most points with the frame (-1 if none)."""
     K, L = state.K, state.L
-    obs_set = _mark(L, obs_point)
+    obs_set = mark(L, obs_point)
     inc = state.pt_obs_kf & state.kf_valid[None, :]
     share = (obs_set.to(torch.float32) @ inc.to(torch.float32)).to(torch.int64)
     kth = stable_topk(share, min(max_local_kfs, K))[0][-1]
@@ -263,15 +281,15 @@ def track_vs_keyframe(state: MapState, frame: Frame, slots, kf, Rcw0, tcw0,
                       cam: Camera, cfg: SlamConfig, old=None) -> TrackResult:
     """Descriptor-only matching against one keyframe's map-point features
     (TrackReferenceKeyFrame), then optimize."""
-    kf_obs = state.kf_obs_point[kf]
-    kf_valid = (state.kf_kp_valid[kf] & (kf_obs >= 0)
+    kf_obs = row(state.kf_obs_point, kf)
+    kf_valid = (row(state.kf_kp_valid, kf) & (kf_obs >= 0)
                 & state.pt_valid[torch.clamp(kf_obs, min=0)])
-    d = matching.distance_matrix(state.kf_desc[kf], frame.desc, kf_valid,
-                                 frame.kp_valid)
+    d = matching.distance_matrix(row(state.kf_desc, kf), frame.desc,
+                                 kf_valid, frame.kp_valid)
     m = matching.nn_match(d, max_dist=float(cfg.matcher.th_low),
                           nn_ratio=cfg.matcher.nn_ratio_init, mutual=True)
     if cfg.matcher.check_orientation:
-        m = matching.rotation_consistency(state.kf_kp_angle[kf],
+        m = matching.rotation_consistency(row(state.kf_kp_angle, kf),
                                           frame.kp_angle, m,
                                           cfg.matcher.histo_length)
     N = frame.kp_uv.shape[0]
@@ -306,7 +324,7 @@ def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
     cosang = torch.sum(vn * state.pt_normal, dim=-1)
     has_normal = torch.linalg.norm(state.pt_normal, dim=-1) > 0.1
     visible = visible & (~has_normal | (cosang > 0.5))
-    already = _mark(L, obs_point)
+    already = mark(L, obs_point)
     cand = visible & ~already
     if pt_candidates is not None:
         cand = cand & pt_candidates
@@ -314,7 +332,7 @@ def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
     lvl_ratio = (torch.clamp(state.pt_max_dist, min=1e-6)
                  / torch.clamp(dist, min=1e-6))
     oct_pred = torch.clamp(torch.ceil(torch.log(lvl_ratio) / torch.log(
-        torch.tensor(sf, dtype=torch.float32, device=dev))),
+        torch.full((), sf, dtype=torch.float32, device=dev))),
         0, cfg.orb.num_levels - 1).to(torch.int64)
     C = min(L, cfg.tracking.local_map_candidates)
     cscore, cidx = stable_topk(cand, C)
@@ -337,7 +355,7 @@ def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
     n_matches = (obs_point >= 0).sum()
     res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
                              cfg, old)
-    found_sel = _mark(L, obs_out)
+    found_sel = mark(L, obs_out)
     new_visible = state.pt_visible + visible.to(torch.float32)
     new_found = state.pt_found + found_sel.to(torch.float32)
     return (TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers, n_matches),
@@ -382,7 +400,7 @@ def _finish(state: MapState, frame: Frame, tr, n_first, slots, old, ok_a,
     keyframe."""
     any_new = (frame.mk_good & frame.mk_valid & (slots < 0)).any()
     ref_kf = torch.where(best_kf >= 0, best_kf, ref_kf)
-    ref_obs = state.kf_obs_point[ref_kf]
+    ref_obs = row(state.kf_obs_point, ref_kf)
     ref_obs_safe = torch.clamp(ref_obs, min=0)
     ref_pt_ok = (ref_obs >= 0) & state.pt_valid[ref_obs_safe]
     obs_count = (state.pt_obs_kf & state.kf_valid[None, :]).sum(dim=1)

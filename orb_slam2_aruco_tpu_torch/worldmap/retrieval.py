@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from orb_slam2_aruco_tpu_torch.ops.orb import unpack_pm1
+from orb_slam2_aruco_tpu_torch.utils.consts import const
 
 
 @lru_cache(maxsize=4)
@@ -23,15 +24,10 @@ def prototype_table(num_words: int, seed: int) -> np.ndarray:
     return rng.integers(0, 2, size=(num_words, 256)).astype(np.float32) * 2 - 1
 
 
-_device_protos = {}
-
-
 def _protos_on(num_words, seed, device):
-    key = (num_words, seed, str(device))
-    if key not in _device_protos:
-        _device_protos[key] = torch.as_tensor(
-            prototype_table(num_words, seed)).to(device, torch.bfloat16)
-    return _device_protos[key]
+    return const(("bow_prototypes", num_words, seed), device,
+                 lambda: torch.as_tensor(prototype_table(num_words, seed))
+                 .to(torch.bfloat16))
 
 
 def bow_vector(packed_desc, kp_valid, num_words: int, seed: int = 7):

@@ -3,7 +3,9 @@
 Port of orb_slam2_aruco_tpu/worldmap/state.py (reference src/Map.cc,
 MapPoint.cc, KeyFrame.cc, MapAruco.cc as arrays + validity masks). The
 field list and shapes are the JAX package's; `state_from_numpy` carries a
-map the JAX package built (its arrays as numpy) onto a device.
+map the JAX package built (its arrays as numpy) onto a device, and
+`state_to_numpy` gives a map back in the JAX package's dtypes. `empty_map`
+is the SLAM-mode starting map.
 
 Shapes: K = max_keyframes, N = features/frame, L = max_points,
 M = max_markers, A = markers per keyframe, E = loop edges, W = BoW words.
@@ -17,6 +19,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from orb_slam2_aruco_tpu_torch.config import SlamConfig
 
 
 class MapState(NamedTuple):
@@ -73,6 +77,19 @@ class MapState(NamedTuple):
     def L(self):
         return self.pt_valid.shape[0]
 
+    @property
+    def M(self):
+        return self.mk_valid.shape[0]
+
+    def num_keyframes(self):
+        return self.kf_valid.sum()
+
+    def num_points(self):
+        return self.pt_valid.sum()
+
+    def num_markers(self):
+        return self.mk_valid.sum()
+
 
 def to_torch(a, device="cpu") -> torch.Tensor:
     """numpy -> tensor on `device`: uint32 keeps its bits as int32, other
@@ -93,3 +110,94 @@ def state_from_numpy(arrays: dict, device="cpu") -> MapState:
         raise KeyError(f"map arrays lack fields {missing}")
     return MapState(**{f: to_torch(arrays[f], device)
                        for f in MapState._fields})
+
+
+# the JAX package's dtypes of the fields that are not float32 or bool
+_UINT32_FIELDS = ("kf_desc", "pt_desc")
+
+
+def state_to_numpy(state: MapState) -> dict:
+    """The port's MapState -> numpy arrays keyed by field name, in the JAX
+    package's dtypes (int32 indices, uint32 descriptor bits): the inverse
+    of `state_from_numpy`."""
+    out = {}
+    for f in MapState._fields:
+        a = getattr(state, f).detach().cpu().numpy()
+        if f in _UINT32_FIELDS:
+            a = a.astype(np.int32).view(np.uint32)
+        elif np.issubdtype(a.dtype, np.integer):
+            a = a.astype(np.int32)
+        out[f] = a
+    return out
+
+
+def empty_map(cfg: SlamConfig, device="cpu", num_words: int = None
+              ) -> MapState:
+    """An empty map at the configured capacities on `device`."""
+    K = cfg.map.max_keyframes
+    N = cfg.orb.num_features
+    L = cfg.map.max_points
+    M = cfg.map.max_markers
+    A = cfg.aruco.max_markers_per_frame
+    E = cfg.map.max_loop_edges
+    W = num_words if num_words is not None else cfg.retrieval.num_words
+    f32, i64 = torch.float32, torch.int64
+
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    def eye(n):
+        return torch.eye(3, dtype=f32, device=device).repeat(n, 1, 1)
+
+    return MapState(
+        kf_Rcw=eye(K), kf_tcw=full((K, 3), 0.0, f32),
+        kf_valid=full((K,), False, torch.bool),
+        kf_frame_id=full((K,), -1, i64), kf_ts=full((K,), 0.0, f32),
+        kf_seq=full((K,), -1, i64), kf_kp_uv=full((K, N, 2), 0.0, f32),
+        kf_kp_octave=full((K, N), 0, i64),
+        kf_kp_angle=full((K, N), 0.0, f32),
+        kf_desc=full((K, N, 8), 0, torch.int32),
+        kf_kp_valid=full((K, N), False, torch.bool),
+        kf_obs_point=full((K, N), -1, i64),
+        pt_xyz=full((L, 3), 0.0, f32), pt_valid=full((L,), False, torch.bool),
+        pt_desc=full((L, 8), 0, torch.int32),
+        pt_normal=full((L, 3), 0.0, f32), pt_min_dist=full((L,), 0.0, f32),
+        pt_max_dist=full((L,), 1e9, f32), pt_ref_kf=full((L,), -1, i64),
+        pt_found=full((L,), 1.0, f32), pt_visible=full((L,), 1.0, f32),
+        pt_first_kf=full((L,), -1, i64), pt_aruco=full((L,), -1, i64),
+        pt_obs_kf=full((L, K), False, torch.bool),
+        mk_Rwm=eye(M), mk_twm=full((M, 3), 0.0, f32),
+        mk_id=full((M,), -1, i64), mk_valid=full((M,), False, torch.bool),
+        mk_side=full((M,), cfg.aruco.marker_size, f32),
+        mk_well=full((M,), False, torch.bool), mk_nbad=full((M,), 0, i64),
+        mk_mean_len=full((M,), 0.0, f32), mk_len_cnt=full((M,), 0.0, f32),
+        kf_mk_slot=full((K, A), -1, i64),
+        kf_mk_uv=full((K, A, 4, 2), 0.0, f32),
+        kf_mk_valid=full((K, A), False, torch.bool),
+        kf_mk_old=full((K, A), False, torch.bool),
+        loop_i=full((E,), -1, i64), loop_j=full((E,), -1, i64),
+        loop_valid=full((E,), False, torch.bool),
+        kf_bow=full((K, W), 0.0, f32),
+        scale_done=full((), False, torch.bool),
+        big_change_idx=full((), 0, i64), next_seq=full((), 0, i64),
+    )
+
+
+def first_free_slot(valid):
+    """Index of the first invalid slot (a full pool gives 0, as argmax of
+    all-False)."""
+    return torch.argmax((~valid).to(torch.int32))
+
+
+def free_slots(valid, count: int):
+    """First `count` free slot indices (then the valid slots in order, as a
+    stable argsort of the validity flags)."""
+    order = torch.sort(valid.to(torch.int32), stable=True).indices
+    return order[:count]
+
+
+def marker_slot_for_id(state: MapState, aruco_id):
+    """Slot holding a given ArUco id, or -1."""
+    hit = (state.mk_id == aruco_id) & state.mk_valid
+    slot = torch.argmax(hit.to(torch.int32))
+    return torch.where(hit.any(), slot, -1)

@@ -267,3 +267,84 @@ def test_each_cuda_launch_is_counted_once(cuda_device):
     fast.fast_score_nms_torch(img, T_HI, T_LO)       # plain: not counted
     assert kernels.launch_counts == {"fast": 1, "patches": 1, "cc_fused": 1,
                                      "cc_propagate": 3}
+
+
+@pytest.mark.cuda
+def test_chunk_makes_no_hidden_synchronizing_call(cuda_device):
+    """One 16-frame chunk of the small configuration in the serving form
+    (extrapolate seeds, one pass: track_batch without a host read), under
+    torch's sync debug mode, makes at most chip_smoke.MAX_DEBUG_SYNCS
+    synchronizing calls: the chunk's one control read."""
+    import dataclasses
+    import json
+    import os
+
+    import chip_smoke
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+    from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "orb_slam2_aruco_tpu_torch", "data",
+        "ref_small.npz")
+    with np.load(path) as z:
+        cfg = SlamConfig.from_dict(json.loads(str(z["ref_cfg"])))
+        cfg = cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, loc_seed_mode="extrapolate", loc_extrap_passes=1))
+        w = json.loads(str(z["ref_world"]))
+        params = z["ref_loc_params"]
+    world = synthetic.build_world(
+        w["marker_ids"], dict_name=cfg.aruco.dictionary,
+        marker_size=w["marker_size"], grid_cols=w["grid_cols"],
+        spacing=w["spacing"], px_per_m=w["px_per_m"])
+    imgs = []
+    for x, y, d, yaw, pitch in params:
+        R, t = synthetic.look_at_plane_pose((x, y), d, yaw=yaw, pitch=pitch)
+        imgs.append(np.clip(synthetic.render_view(world, cfg.camera, R, t),
+                            0, 255).astype(np.uint8))
+    system = SlamSystem(cfg, device=cuda_device)
+    system.load_map(path)
+    system.track_monocular(imgs[0], ts=0.0)
+    frames = [(imgs[k % len(imgs)], 1.0 + k / 30.0) for k in range(16)]
+    for _ in system.localize_stream(StagedSource(frames, batch=16,
+                                                 device=cuda_device),
+                                    chunk=16):
+        pass                                  # warm: builds, caches
+    src = StagedSource(frames, batch=16, device=cuda_device)
+    out = []
+    n, where = chip_smoke.port_sync_calls(
+        lambda: out.extend(system.localize_stream(src, chunk=16)))
+    assert len(out) == 16 and system.stats["rewinds"] == 0
+    assert n <= chip_smoke.MAX_DEBUG_SYNCS, where
+
+
+@pytest.mark.cuda
+def test_threefry_draws_on_the_card_equal_the_cpu_draws(cuda_device):
+    """utils/threefry's draws (held bit for bit to jax.random on the CPU in
+    test_torch_slam.py) give the same bits on the card, and the classic
+    initializer's choice draw makes no synchronizing call there."""
+    import chip_smoke
+    from orb_slam2_aruco_tpu_torch.utils import threefry
+
+    key = threefry.fold_in(threefry.PRNGKey(17), 5)
+    torch.testing.assert_close(
+        threefry.uniform(key, (7, 64, 5), cuda_device).cpu(),
+        threefry.uniform(key, (7, 64, 5), "cpu"), rtol=0, atol=0)
+    rng = np.random.default_rng(3)
+    mask = torch.as_tensor(rng.random((16, 1, 1000)) < 0.05)
+    mask[3] = True
+    want = threefry.categorical_masked_argmax(key, mask, (16, 16, 5))
+    got = threefry.categorical_masked_argmax(key, mask.to(cuda_device),
+                                             (16, 16, 5))
+    assert torch.equal(got.cpu(), want)
+    m = torch.as_tensor((rng.random(1000) < 0.4).astype(np.float32))
+    p = m / torch.clamp(m.sum(), min=1.0)
+    want = threefry.choice_p(threefry.PRNGKey(0), (128, 8), p)
+    pd = p.to(cuda_device)
+    threefry.choice_p(threefry.PRNGKey(0), (128, 8), pd)    # warm
+    out = []
+    n, where = chip_smoke.port_sync_calls(lambda: out.append(
+        threefry.choice_p(threefry.PRNGKey(0), (128, 8), pd)))
+    assert torch.equal(out[0].cpu(), want)
+    assert n == 0, where

@@ -358,6 +358,14 @@ def test_port_imports_no_jax():
         "from orb_slam2_aruco_tpu_torch.ops import fast, orb, cc_fused, "
         "cc_propagate\n"
         "from orb_slam2_aruco_tpu_torch.ops.aruco import detector\n"
+        "from orb_slam2_aruco_tpu_torch.pipeline import initializer, "
+        "mapping\n"
+        "from orb_slam2_aruco_tpu_torch.geometry import triangulate, "
+        "twoview\n"
+        "from orb_slam2_aruco_tpu_torch.optim import ba\n"
+        "from orb_slam2_aruco_tpu_torch.utils import consts, threefry\n"
+        "from orb_slam2_aruco_tpu_torch.worldmap import covisibility, "
+        "state\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('orb_slam2_aruco_tpu.')"
         " or m == 'orb_slam2_aruco_tpu']\n"
@@ -367,3 +375,30 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
+
+
+def test_per_call_constants_are_made_once_per_device(small_frames):
+    """Every constant the per-frame path uploads (resize weights, box-filter
+    bands, octave variances, the detector's unit square, level table and
+    axes, the IPPE square and flip, the ORB tables and bit shifts, the
+    marker code table, the BoW prototypes) is made once per device and
+    reused:
+    a second make_frame adds no entry and replaces none (an upload to a
+    CUDA device is a synchronizing call)."""
+    from orb_slam2_aruco_tpu_torch.utils import consts
+
+    _, cfg, imgs = small_frames
+    cam = tcam.camera_from_config(cfg.camera)
+    img = torch.as_tensor(imgs[0])
+    tfrontend.make_frame(img, cam, cfg)
+    first = dict(consts._CACHE)
+    kinds = {k[0] if isinstance(k, tuple) else k for k, _ in first}
+    assert {"resize_weights", "band", "unit_square", "level_table",
+            "unit_axes", "square", "flip_yz", "orb_tables", "bit_shifts",
+            "code_table", "bow_prototypes"} <= kinds, kinds
+    tfrontend.make_frame(img, cam, cfg)
+    assert consts._CACHE.keys() == first.keys()
+    assert all(consts._CACHE[k] is v for k, v in first.items())
+    # the tracking's octave variances
+    assert (tfrontend.scale_sigma2(8, 1.2, "cpu")
+            is tfrontend.scale_sigma2(8, 1.2, "cpu"))

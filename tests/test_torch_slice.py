@@ -22,12 +22,17 @@ run (`ref_stream_*`: chunk 64 over 128 frames in ref_full, the bench's
 serving form; chunk 4 with a rewind in ref_small), and to ref_small
 `track_batch` in each of its modes (`ref_tb_*`).
 
+`add_slam_reference` adds, to both files, the JAX SlamSystem in SLAM mode
+at tracking.pipeline_depth 0 over the map frames and the localization of
+the reference frames against the map it built (`ref_slam_*`; ref_small
+also holds the system's state before every step).
+
 Each file is a valid map checkpoint (the JAX and the port's load_map read
 it) with the reference arrays under `ref_*` keys. Regenerate everything
-with `--regen`, or only the serving keys of the existing maps with
-`--serving`:
+with `--regen`, or only the serving or SLAM keys with `--serving` or
+`--slam` (the existing keys stay byte-equal):
 
-    python tests/test_torch_slice.py --regen|--serving [small|full]
+    python tests/test_torch_slice.py --regen|--serving|--slam [small|full]
 """
 
 from __future__ import annotations
@@ -63,6 +68,13 @@ DATA_DIR = os.path.join(REPO, "orb_slam2_aruco_tpu_torch", "data")
 # ---------------------------------------------------------------------------
 
 
+def small_pose(u, n=12):
+    """Render parameters (x, y, dist, yaw, pitch) of the small setup at the
+    continuous frame parameter u of tests/test_smoke.py."""
+    return (0.3 + 0.4 * u / n, 0.22, 1.3, 0.1 * np.sin(2 * np.pi * u / n),
+            0.05)
+
+
 def _small_setup():
     from orb_slam2_aruco_tpu.config import CameraConfig, SlamConfig
 
@@ -76,15 +88,13 @@ def _small_setup():
     )
     world = dict(marker_ids=[3, 17, 42, 99], px_per_m=700.0, spacing=0.45,
                  grid_cols=2, marker_size=0.165)
-    n = 12
-
-    def pose(u):   # continuous frame parameter of tests/test_smoke.py
-        return (0.3 + 0.4 * u / n, 0.22, 1.3,
-                0.1 * np.sin(2 * np.pi * u / n), 0.05)
-
-    map_params = [pose(i) for i in range(n)]
-    loc_params = [pose(i + 0.5) for i in range(2, 10)]
+    map_params = [small_pose(i) for i in range(12)]
+    loc_params = [small_pose(i + 0.5) for i in range(2, 10)]
     return cfg, world, map_params, loc_params
+
+
+# the small setup's second SLAM scene: the same sweep half a frame later
+SMALL_SHIFTED_PARAMS = [small_pose(i + 0.5) for i in range(12)]
 
 
 def _full_setup():
@@ -381,17 +391,206 @@ def add_serving_reference(which=("small", "full"), out_dir=DATA_DIR):
               f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# SLAM mode (ref_slam_* keys)
+# ---------------------------------------------------------------------------
+
+
+def slam_cfg(cfg):
+    """`cfg` in non-pipelined SLAM mode (tracking.pipeline_depth = 0, the
+    configuration default), either package's SlamConfig."""
+    return cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                    pipeline_depth=0))
+
+
+# host-side SlamSystem attributes of a recorded SLAM step (ref_slam_step_*)
+STEP_SCALARS = ("state", "n_keyframes", "last_kf_frame_id",
+                "last_reloc_frame_id", "ref_kf", "last_kf_slot",
+                "prev_kf_slot", "init_frame_id")
+STEP_FRAMES = ("frame", "last_frame", "init_frame")
+
+
+def _slam_snapshot(slam, frame):
+    """The JAX SlamSystem's state before it steps `frame` (a depth-0 SLAM
+    step), as numpy: the map (map_*), the host counters, the frames
+    (frame_*, last_frame_*, init_frame_*), last_obs, last_pose and vel,
+    with has_* flags for the optional ones."""
+    out = {f"map_{f}": np.asarray(getattr(slam.map, f))
+           for f in slam.map._fields}
+    out["kf_valid_host"] = slam._kf_valid_host.copy()
+    out["kf_ts64"] = slam.kf_ts64.copy()
+    for a in STEP_SCALARS:
+        v = getattr(slam, a)
+        out[a] = np.asarray(v.value if a == "state" else int(v), np.int64)
+    out["init_ts"] = np.asarray(getattr(slam, "init_ts", 0.0), np.float64)
+    for name, fr in zip(STEP_FRAMES, (frame, slam.last_frame,
+                                       slam.init_frame)):
+        out[f"has_{name}"] = np.asarray(fr is not None)
+        for f in fr._fields if fr is not None else frame._fields:
+            out[f"{name}_{f}"] = np.asarray(getattr(
+                fr if fr is not None else frame, f))
+    N = frame.kp_uv.shape[0]
+    out["has_last_obs"] = np.asarray(slam.last_obs is not None)
+    out["last_obs"] = (np.asarray(slam.last_obs) if slam.last_obs is not None
+                       else np.full(N, -1, np.int32))
+    for name in ("last_pose", "vel"):
+        v = getattr(slam, name)
+        out[f"has_{name}"] = np.asarray(v is not None)
+        out[f"{name}_R"] = np.asarray(v[0] if v is not None else np.eye(3),
+                                      np.float32)
+        out[f"{name}_t"] = np.asarray(v[1] if v is not None else np.zeros(3),
+                                      np.float32)
+    return out
+
+
+def _jax_slam_run(cfg, imgs, gt, snapshots=None):
+    """The JAX SlamSystem at pipeline_depth 0 over `imgs` (track_monocular's
+    steps, with the frame and, where `snapshots` is a list, the system's
+    state before each step recorded): (system, ref_slam_* arrays without
+    the prefix). Raises if the run reaches loop detection, which the port
+    skips."""
+    from unittest import mock
+
+    import jax.numpy as jnp
+
+    from orb_slam2_aruco_tpu.io import trajectory
+    from orb_slam2_aruco_tpu.pipeline import loop_closing
+    from orb_slam2_aruco_tpu.pipeline.frontend import make_frame
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem, TrackingState
+
+    detect_calls = []
+    real_detect = loop_closing.detect_loops
+
+    def counted(*a, **k):
+        detect_calls.append(1)
+        return real_detect(*a, **k)
+
+    slam = SlamSystem(cfg)
+    st, Rs, ts, nkf, ins, npts = [], [], [], [], [], []
+    with mock.patch.object(loop_closing, "detect_loops", counted):
+        for i, img in enumerate(imgs):
+            before = slam.stats["kf_inserted"]
+            frame = make_frame(jnp.asarray(img), slam.cam, cfg)
+            if snapshots is not None:
+                snapshots.append(_slam_snapshot(slam, frame))
+            fid = slam.frame_id
+            slam.frame_id += 1
+            p = slam._step_frame(frame, fid, i / 30.0)
+            R, t = (p if p is not None else
+                    (np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))
+            st.append(slam.state.value)
+            Rs.append(np.asarray(R, np.float32))
+            ts.append(np.asarray(t, np.float32))
+            nkf.append(slam.n_keyframes)
+            ins.append(slam.stats["kf_inserted"] - before)
+            npts.append(int(slam.map.num_points()))
+    if detect_calls:
+        raise RuntimeError("the SLAM recording reached loop detection; the "
+                           "port skips that step")
+    st = np.asarray(st, np.int32)
+    ok = st == TrackingState.OK.value
+    gt_R = np.stack([g[0] for g in gt]).astype(np.float32)
+    gt_t = np.stack([g[1] for g in gt]).astype(np.float32)
+    est_c = trajectory.camera_centers(np.stack(Rs)[ok], np.stack(ts)[ok])
+    ate = trajectory.ate_rmse(est_c, trajectory.camera_centers(
+        gt_R[ok], gt_t[ok]), align=True, with_scale=False)
+    return slam, dict(
+        state=st, R=np.stack(Rs), t=np.stack(ts),
+        n_kf=np.asarray(nkf, np.int32),
+        kf_insert=np.asarray(ins, np.int32),
+        n_points=np.asarray(npts, np.int32), gt_R=gt_R, gt_t=gt_t,
+        ate=np.asarray(ate, np.float64))
+
+
+def add_slam_reference(which=("small", "full"), out_dir=DATA_DIR):
+    """Record, into the existing ref_<which>.npz, the JAX SlamSystem in
+    non-pipelined SLAM mode over the map frames (`ref_map_params`): per
+    frame its state, pose, keyframe count, keyframe inserts and valid point
+    count; the final keyframe trajectory, stats and ATE; then the
+    localization of the mid-point frames (`ref_loc_params`) against the map
+    that run built. ref_small also records the system's state before every
+    step (ref_slam_step_*, `_slam_snapshot`), and the same run over a
+    second scene, `SMALL_SHIFTED_PARAMS` (ref_slam_shift_*). No recording
+    reaches the loop-detection step (`loop_closing.detect_loops` is counted
+    and must stay uncalled: every run keeps fewer keyframes than
+    `cfg.loop.min_kfs_between_loops`)."""
+    import time
+
+    from orb_slam2_aruco_tpu.io import synthetic as jsyn
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem, TrackingState
+
+    for name in which:
+        t0 = time.perf_counter()
+        path = os.path.join(out_dir, f"ref_{name}.npz")
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files
+                      if not k.startswith("ref_slam_")}
+        base_cfg, world_kw, map_params, loc_params = SETUPS[name]()
+        cfg = slam_cfg(base_cfg)
+        imgs, gt = render_frames(jsyn, world_kw, cfg.camera, map_params,
+                                 cfg.aruco.dictionary)
+        steps = [] if name == "small" else None
+        slam, run = _jax_slam_run(cfg, imgs, gt, steps)
+        kf_fid, _, kf_R, kf_t = slam.keyframe_trajectory()
+        with tempfile.TemporaryDirectory() as tmp:
+            mpath = os.path.join(tmp, "map.npz")
+            slam.save_map(mpath)
+            loc = SlamSystem(cfg)
+            loc.load_map(mpath)
+        loc_imgs, _ = render_frames(jsyn, world_kw, cfg.camera, loc_params,
+                                    cfg.aruco.dictionary)
+        lok, lR, lt = [], [], []
+        for i, img in enumerate(loc_imgs):
+            p = loc.track_monocular(img, ts=100.0 + i / 30.0)
+            lok.append(loc.state is TrackingState.OK and p is not None)
+            R, t = (p if p is not None else
+                    (np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))
+            lR.append(np.asarray(R, np.float32))
+            lt.append(np.asarray(t, np.float32))
+        arrays.update({f"ref_slam_{k}": v for k, v in run.items()})
+        arrays.update(
+            ref_slam_kf_fid=np.asarray(kf_fid, np.int32),
+            ref_slam_kf_R=np.asarray(kf_R, np.float32),
+            ref_slam_kf_t=np.asarray(kf_t, np.float32),
+            ref_slam_stats=np.asarray(json.dumps(
+                {k: int(v) for k, v in slam.stats.items()})),
+            ref_slam_loc_ok=np.asarray(lok), ref_slam_loc_R=np.stack(lR),
+            ref_slam_loc_t=np.stack(lt))
+        if steps:
+            arrays.update({f"ref_slam_step_{k}":
+                           np.stack([step[k] for step in steps])
+                           for k in steps[0]})
+        if name == "small":
+            simgs, sgt = render_frames(jsyn, world_kw, cfg.camera,
+                                       SMALL_SHIFTED_PARAMS,
+                                       cfg.aruco.dictionary)
+            _, shift = _jax_slam_run(cfg, simgs, sgt)
+            arrays.update({f"ref_slam_shift_{k}": v
+                           for k, v in shift.items()})
+        np.savez_compressed(path, **arrays)
+        print(f"{path}: SLAM states {run['state'].tolist()}, inserts at "
+              f"{np.flatnonzero(run['kf_insert']).tolist()}, keyframes "
+              f"{kf_fid.tolist()}, points {run['n_points'][-1]}, ATE "
+              f"{float(run['ate']):.5f} m, stats {slam.stats}, "
+              f"loc ok {int(np.sum(lok))}/{len(lok)}, "
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
+
+
 if __name__ == "__main__":
-    if "--regen" not in sys.argv and "--serving" not in sys.argv:
-        sys.exit("usage: python tests/test_torch_slice.py --regen|--serving "
-                 "[small|full]")
+    modes = ("--regen", "--serving", "--slam")
+    if not any(m in sys.argv for m in modes):
+        sys.exit("usage: python tests/test_torch_slice.py "
+                 "--regen|--serving|--slam [small|full]")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
     if "--regen" in sys.argv:
         build_reference_data(picked)
-    else:
+        add_slam_reference(picked)
+    elif "--serving" in sys.argv:
         add_serving_reference(picked)
+    else:
+        add_slam_reference(picked)
 
 
 # ---------------------------------------------------------------------------
@@ -523,13 +722,24 @@ def test_ate_matches_jax(with_scale):
     assert got > 0.005
 
 
-def test_slam_mode_is_not_ported_yet():
+def test_pipelined_slam_mode_is_not_ported_yet():
+    """SLAM mode runs at tracking.pipeline_depth 0 (the default); a deeper
+    pipeline raises, naming its ROADMAP item, instead of running depth 0
+    silently. Localization against a loaded map ignores the depth."""
     from orb_slam2_aruco_tpu_torch.config import SlamConfig
     from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
 
-    system = SlamSystem(SlamConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        system.track_monocular(np.zeros((540, 960), np.uint8), ts=0.0)
+    assert SlamConfig().tracking.pipeline_depth == 0
+    path, ref = _load_ref("small")
+    cfg = SlamConfig.from_dict(json.loads(str(ref["ref_cfg"])))
+    deep = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                    pipeline_depth=4))
+    blank = np.zeros((cfg.camera.height, cfg.camera.width), np.uint8)
+    system = SlamSystem(deep, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        system.track_monocular(blank, ts=0.0)
+    system.load_map(path)
+    assert system.track_monocular(blank, ts=0.0) is None
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
