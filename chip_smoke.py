@@ -64,13 +64,37 @@ capacity), in phases:
               classic (marker-free) two-view initialization: every
               synchronizing call by site, at most MAX_SLAM_SYNCS and
               MAX_CLASSIC_INIT_SYNCS.
-  8. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+  8. loop     SLAM mode with loop closing and relocalization at the same
+              widths and capacities (data/ref_full.npz, ref_loop_*): the
+              bench world's markers at the left of a long wall, a pan away
+              and back with the map built after frame 18 rigidly displaced
+              at frame 32 (synthetic.inject_drift), so the return closes a
+              loop by marker: Sim3, essential graph, whole-map fuse and the
+              post-loop global BA in slices over more than 32 keyframes
+              (the BA's CG branch), drained by keyframe_trajectory(); then
+              two black frames, a noise frame, a marker-free frame of the
+              away leg (BoW-PnP relocalization), two black frames and a
+              start-area frame (marker relocalization). Every state, the
+              insert frames, keyframe count, loops (frame, keyframe pair,
+              marker or BoW) and the BoW-PnP relocalization equal to the
+              JAX package's recorded run, loop Sim3s within 0.5 deg / 2 cm;
+              keyframe poses after the drain within 1.7 deg / 17.7 cm and
+              the BoW-PnP pose within 0.6 deg / 14.8 cm (twice what one
+              float32 ulp moves JAX itself there); valid points within
+              5 %; the start <-> end seam error at most max(1.5 x, +5 mm)
+              of JAX's and below 0.25 m; the start-area frame relocalized
+              by marker (JAX's recorded run loses it, JAX one ulp up
+              relocalizes it by marker). Prints fps,
+              ms per insert, per GBA slice and per loop correction, and the
+              loop frame's ms; then the scene once more under the sync
+              debug mode: at most MAX_LOOP_SYNCS calls, printed by site.
+  9. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
-Launch counts are zeroed just before each of slice, quads, stream and slam
-and read just after: each must have launched the kernels of its path (K1-K3
-on slice, stream and slam, K4 on quads), and K1, K2 and K3 once per frame
-built.
+Launch counts are zeroed just before each of slice, quads, stream, slam and
+loop and read just after: each must have launched the kernels of its path
+(K1-K3 on slice, stream, slam and loop, K4 on quads), and K1, K2 and K3
+once per frame built.
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -98,6 +122,17 @@ TRANS_TOL_M = 0.01
 SLAM_ROT_TOL_DEG = 0.5
 SLAM_TRANS_TOL_M = 0.02
 SLAM_POINTS_TOL = 0.05
+# the loop scene's drift (tests/test_torch_slice.py LOOP_*): the map built
+# after frame LOOP_CUTOFF moved by (so3_exp(LOOP_DRIFT_W), LOOP_DRIFT_T)
+# once frame LOOP_INJECT is tracked
+LOOP_DRIFT_W = (0.0, -0.06, 0.0)
+LOOP_DRIFT_T = (0.65, 0.0, 0.2)
+LOOP_INJECT, LOOP_CUTOFF = 32, 18
+# and the loop scene's keyframe poses after the global BA's drain and its
+# BoW-PnP pose: twice what one float32 ulp moves JAX itself there
+# (tools/torch_loop_sensitivity.py: 0.85 deg / 8.85 cm, 0.30 deg / 7.40 cm)
+LOOP_KF_ROT_TOL_DEG, LOOP_KF_TRANS_TOL_M = 1.7, 0.177
+LOOP_RELOC_ROT_TOL_DEG, LOOP_RELOC_TRANS_TOL_M = 0.6, 0.148
 
 # frames of the two untimed measurements, kept short for the script's time:
 # the slice's frontend / tracking split and the stream's sync-debug chunk
@@ -118,6 +153,14 @@ MAX_DEBUG_SYNCS = 1
 # initialization: its 10 SVDs, which do the same
 MAX_SLAM_SYNCS = 93
 MAX_CLASSIC_INIT_SYNCS = 10
+# and for the loop scene's 69 steps under the debug mode: the deliberate
+# reads of tracking.SYNCS (the cascade's branch reads, the insert and loop
+# detection reads, the Sim3 verdicts, the relocalization candidates and
+# gates), the control vectors and the relocalized poses, the plane
+# updates' eigh, the RANSAC PnP's SVDs and eigh and the classic Sim3's
+# Horn eigh (PERF.md section 5); 777 before the loop closing's element
+# writes of Python numbers became masks
+MAX_LOOP_SYNCS = 419
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -136,6 +179,7 @@ PATH_KERNELS = {
     "quads": ("cc_propagate",),
     "stream": ("fast", "patches", "cc_fused"),
     "slam": ("fast", "patches", "cc_fused"),
+    "loop": ("fast", "patches", "cc_fused"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and float32
@@ -1040,6 +1084,291 @@ def slam_sync_phase(scfg, imgs):
                          f"initialization, above {MAX_CLASSIC_INIT_SYNCS}")
 
 
+def loop_reference():
+    """(cfg, ref_loop_* arrays without the prefix, the pan's float32
+    frames, their ground-truth poses) of data/ref_full.npz."""
+    import numpy as np
+
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+
+    with np.load(os.path.join(HERE, PKG, "data", "ref_full.npz")) as z:
+        ref = {k[len("ref_loop_"):]: z[k] for k in z.files
+               if k.startswith("ref_loop_")}
+    cfg = SlamConfig.from_dict(json.loads(str(ref["cfg"])))
+    w = json.loads(str(ref["world"]))
+    world = synthetic.build_world(
+        w["marker_ids"], dict_name=cfg.aruco.dictionary,
+        marker_size=w["marker_size"], grid_cols=w["grid_cols"],
+        spacing=w["spacing"], px_per_m=w["px_per_m"],
+        extent_margin=w["extent_margin"])
+    gt = [synthetic.look_at_plane_pose((x, y), d, yaw=yaw, pitch=pitch)
+          for x, y, d, yaw, pitch in ref["params"]]
+    imgs = [synthetic.render_view(world, cfg.camera, R, t) for R, t in gt]
+    return cfg, ref, imgs, gt
+
+
+def loop_frames(ref, imgs):
+    """(frame, timestamp) of every step of the loop scene: the pan, then
+    the extra frames (-1 black, -2 binary noise, k the pan's frame k)."""
+    import numpy as np
+
+    steps = [(img, i / 30.0) for i, img in enumerate(imgs)]
+    for j, k in enumerate(ref["extra"].tolist()):
+        if k == -1:
+            img = np.zeros_like(imgs[0])
+        elif k == -2:
+            img = (np.random.default_rng(3).integers(0, 2, size=imgs[0].shape)
+                   * 255).astype(np.float32)
+        else:
+            img = imgs[k]
+        steps.append((img, 100.0 + j / 30.0))
+    return steps
+
+
+def run_loop_scene(cfg, ref, steps, probe=None):
+    """The SLAM system over the loop scene's steps with the drift injected
+    after frame LOOP_INJECT and keyframe_trajectory() after the pan:
+    (system, poses, states, inserts, (fids, R, t) after the drain, valid
+    points after the drain). probe(i, step_fn) runs each step (timing or
+    sync counting)."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch.geometry.lie import so3_exp
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    system = SlamSystem(cfg, device=DEVICE)
+    n = len(ref["params"])
+    poses, states, inserts = [], [], []
+    traj = None
+    for i, (img, ts) in enumerate(steps):
+        if i == n:
+            fids, _, kR, kt = system.keyframe_trajectory()
+            traj = (fids, kR, kt, int(system.map.pt_valid.sum()))
+        before = system.stats["kf_inserted"]
+        def step(img=img, ts=ts):
+            poses.append(system.track_monocular(img, ts=ts))
+
+        probe(i, step) if probe is not None else step()
+        states.append(system.state.value)
+        inserts.append(system.stats["kf_inserted"] - before)
+        if i == LOOP_INJECT:
+            synthetic.inject_drift(system, LOOP_CUTOFF, so3_exp(
+                torch.tensor(LOOP_DRIFT_W)), LOOP_DRIFT_T)
+    return system, poses, np.asarray(states), np.asarray(inserts), traj
+
+
+def loop_phase():
+    """SLAM mode with loop closing and relocalization over the loop scene
+    against the JAX package's recorded run. Returns the kernel launch
+    counts of the timed run."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+    from orb_slam2_aruco_tpu_torch.pipeline import loop_closing, tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    cfg, ref, imgs, gt = loop_reference()
+    steps = loop_frames(ref, imgs)
+    # the loops (step, keyframe, loop keyframe, by marker, Sim3) and the
+    # time of each correction, GBA slice and insert
+    loops, kind, cur = [], [], [0]
+    times = collections.defaultdict(list)
+    real = {n: getattr(loop_closing, n) for n in
+            ("correct_loop", "compute_sim3", "compute_sim3_classic")}
+    real_sys = {n: getattr(SlamSystem, n) for n in
+                ("_gba_slice", "_insert_keyframe", "_relocalize")}
+    reloc_kind = {}
+
+    def relocalize(self, frame, fid, ts):
+        # by marker when the marker pose candidate holds (the JAX run's
+        # record of the same question)
+        slots = tracking.bind_markers(self.map, frame)
+        ok = tracking.aruco_pose_candidate(self.map, frame, slots, self.cam,
+                                           self.cfg)[0]
+        before = self.stats["reloc"]
+        out = real_sys["_relocalize"](self, frame, fid, ts)
+        if self.stats["reloc"] > before:
+            reloc_kind[cur[0]] = int(bool(ok))
+        return out
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def correct(state, k, kf_loop, s, R, t, *a, **kw):
+        loops.append((cur[0], k, kf_loop, kind[-1], float(s),
+                      R.cpu().numpy(), t.cpu().numpy()))
+        return real["correct_loop"](state, k, kf_loop, s, R, t, *a, **kw)
+
+    def sim3(name, by_marker):
+        def run(*a, **kw):
+            kind.append(by_marker)
+            return real[name](*a, **kw)
+        return run
+
+    frame_s = []
+
+    def probe(i, step):
+        cur[0] = i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+
+    loop_closing.correct_loop = timed("correction", correct)
+    loop_closing.compute_sim3 = sim3("compute_sim3", 1)
+    loop_closing.compute_sim3_classic = sim3("compute_sim3_classic", 0)
+    SlamSystem._gba_slice = timed("gba", real_sys["_gba_slice"])
+    SlamSystem._insert_keyframe = timed("insert",
+                                        real_sys["_insert_keyframe"])
+    SlamSystem._relocalize = relocalize
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tracking.SYNCS["count"] = 0
+        system, poses, states, inserts, traj = run_loop_scene(
+            cfg, ref, steps, probe)
+        counts = dict(kernels.launch_counts)
+        syncs = tracking.SYNCS["count"]
+    finally:
+        for n, fn in real.items():
+            setattr(loop_closing, n, fn)
+        for n, fn in real_sys.items():
+            setattr(SlamSystem, n, fn)
+    phase("loop", f"kernel launches in the loop scene: {counts}")
+    check_launches("loop", counts)
+    check_frames_built("loop", counts, len(steps))
+
+    n = len(imgs)
+    last = len(steps) - 1
+    want_states = ref["state"].tolist()
+    if states[:last].tolist() != want_states[:last]:
+        raise PhaseError(f"loop scene states differ from the JAX run: port "
+                         f"{states.tolist()} vs JAX {want_states}")
+    # the start-area frame: JAX's recorded run is lost there (its post-loop
+    # map), JAX one ulp up relocalizes it by marker; the port must
+    if states[last] != 2 or reloc_kind.get(last) != 1:
+        raise PhaseError(f"the start-area frame (step {last}) did not "
+                         f"relocalize by marker: state {states[last]}, "
+                         f"relocalized by {reloc_kind.get(last)}")
+    got_ins = np.flatnonzero(inserts).tolist()
+    want_ins = np.flatnonzero(ref["kf_insert"]).tolist()
+    fids, kR, kt, n_points = traj
+    if (got_ins != want_ins or fids.tolist() != ref["kf_fid"].tolist()
+            or system.n_keyframes != int(ref["n_kf"][-1])):
+        raise PhaseError(f"keyframe inserts at {got_ins} (keyframes "
+                         f"{fids.tolist()}) vs the JAX run's {want_ins} "
+                         f"({ref['kf_fid'].tolist()})")
+    got_loops = [list(lp[:4]) for lp in loops]
+    if got_loops != ref["loops"].tolist() or not got_loops:
+        raise PhaseError(f"loops (step, keyframe, loop keyframe, by marker) "
+                         f"{got_loops} vs the JAX run's "
+                         f"{ref['loops'].tolist()}")
+    sim3_r = max(rot_err_deg(lp[5], R) for lp, R in zip(loops,
+                                                         ref["loop_R"]))
+    sim3_t = max(float(np.linalg.norm(lp[6] - t))
+                 for lp, t in zip(loops, ref["loop_t"]))
+    sim3_s = max(abs(lp[4] - s) for lp, s in zip(loops, ref["loop_s"]))
+    if sim3_r > SLAM_ROT_TOL_DEG or sim3_t > SLAM_TRANS_TOL_M or sim3_s > 1e-6:
+        raise PhaseError(f"loop Sim3s off the JAX run: {sim3_r:.4f} deg, "
+                         f"{sim3_t * 100:.4f} cm, scale {sim3_s:.2e}")
+    kf_r = max(rot_err_deg(a, b) for a, b in zip(kR, ref["kf_R"]))
+    kf_t = max(float(np.linalg.norm(a - b)) for a, b in zip(kt, ref["kf_t"]))
+    if kf_r > LOOP_KF_ROT_TOL_DEG or kf_t > LOOP_KF_TRANS_TOL_M:
+        raise PhaseError(f"keyframe poses after the drain off the JAX run: "
+                         f"{kf_r:.4f} deg, {kf_t * 100:.4f} cm (limits "
+                         f"{LOOP_KF_ROT_TOL_DEG} deg, "
+                         f"{LOOP_KF_TRANS_TOL_M * 100} cm)")
+    want_pts = int(ref["n_valid"])
+    if abs(n_points - want_pts) > SLAM_POINTS_TOL * want_pts:
+        raise PhaseError(f"{n_points} valid map points vs the JAX run's "
+                         f"{want_pts} (limit {SLAM_POINTS_TOL:.0%})")
+    est_c = trajectory.camera_centers(kR, kt)
+    gt_c = trajectory.camera_centers([gt[i][0] for i in fids],
+                                     [gt[i][1] for i in fids])
+    seam = float(np.linalg.norm(
+        np.asarray(kR[0], np.float64) @ (est_c[-1] - est_c[0])
+        - np.asarray(gt[fids[0]][0], np.float64) @ (gt_c[-1] - gt_c[0])))
+    ref_seam = float(ref["seam"])
+    seam_limit = min(max(1.5 * ref_seam, ref_seam + 0.005), 0.25)
+    if not seam <= seam_limit:
+        raise PhaseError(f"seam error {seam * 1000:.3f} mm above "
+                         f"{seam_limit * 1000:.3f} mm (JAX "
+                         f"{ref_seam * 1000:.3f} mm)")
+    bow = [i for i in range(n, last) if ref["reloc_marker"][i] >= 0]
+    got_bow = [i for i in range(n, last) if i in reloc_kind]
+    if (got_bow != bow or [reloc_kind[i] for i in bow]
+            != ref["reloc_marker"][bow].tolist()
+            or 0 not in ref["reloc_marker"][bow].tolist()
+            or system.stats["reloc"]
+            != json.loads(str(ref["stats"]))["reloc"] + 1):
+        raise PhaseError(f"relocalizations at steps {sorted(reloc_kind)} "
+                         f"(marker {reloc_kind}) vs the JAX run's "
+                         f"{ref['reloc_marker'].tolist()}")
+    rl_r, rl_t = pose_errors([poses[i] for i in bow], ref["R"][bow],
+                             ref["t"][bow])
+    if rl_r > LOOP_RELOC_ROT_TOL_DEG or rl_t > LOOP_RELOC_TRANS_TOL_M:
+        raise PhaseError(f"BoW-PnP poses off the JAX run: {rl_r:.4f} deg, "
+                         f"{rl_t * 100:.4f} cm")
+    gba_cams = sorted(set(ref["gba_cams"].tolist()) - {0})
+    loop_step = got_loops[0][0]
+    tracked = [frame_s[i] for i in range(n) if states[i] == 2
+               and i != loop_step]
+    phase("loop", f"{len(steps)} steps ({n} pan frames, extra "
+          f"{ref['extra'].tolist()}): states, inserts ({len(got_ins)}), "
+          f"keyframes ({len(fids)}) and loops {got_loops} equal to JAX "
+          f"(post-loop GBA over {gba_cams} camera slots: CG beyond 32); "
+          f"Sim3s within {sim3_r:.5f} deg / {sim3_t * 100:.5f} cm; keyframe "
+          f"poses after the drain within {kf_r:.5f} deg / {kf_t * 100:.5f} "
+          f"cm; {n_points} valid points (JAX {want_pts}); seam "
+          f"{seam * 1000:.3f} mm (JAX {ref_seam * 1000:.3f} mm); "
+          f"BoW-PnP relocalization at steps {bow} within {rl_r:.5f} deg / "
+          f"{rl_t * 100:.5f} cm of JAX's; the start-area frame (step "
+          f"{last}) relocalized by marker (JAX's recorded run: lost)")
+    med = statistics.median
+    phase("loop", f"{len(tracked) / sum(tracked):.2f} fps over the "
+          f"{len(tracked)} tracked pan frames but the loop frame (median "
+          f"{med(tracked) * 1000:.1f} ms); the loop frame (step {loop_step}) "
+          f"{frame_s[loop_step] * 1000:.1f} ms; per insert median "
+          f"{med(times['insert']) * 1000:.1f} ms over "
+          f"{len(times['insert'])}; per GBA slice "
+          f"{[round(v * 1000, 1) for v in times['gba']]} ms; per loop "
+          f"correction {[round(v * 1000, 1) for v in times['correction']]}"
+          f" ms; host syncs {syncs} = {syncs / len(steps):.2f} per step; "
+          f"stats {system.stats}")
+
+    sync_calls(lambda: None)          # the debug mode's own first report
+    where, per_step = collections.Counter(), []
+
+    def count(i, step):
+        got = sync_calls(step)
+        per_step.append(sum(got.values()))
+        where.update(got)
+
+    _, _, states2, _, _ = run_loop_scene(cfg, ref, steps, count)
+    n_sync = sum(per_step)
+    phase("loop", f"sync debug mode, the {len(steps)} steps again: {n_sync} "
+          f"synchronizing calls; per step {per_step}; states "
+          f"{'as' if states2.tolist() == states.tolist() else 'unlike'} the "
+          f"timed run's; by site: {sites(where)}")
+    if n_sync > MAX_LOOP_SYNCS:
+        raise PhaseError(f"{n_sync} synchronizing calls in the loop scene, "
+                         f"above {MAX_LOOP_SYNCS}")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"FAIL: {PKG}/ not found beside chip_smoke.py", flush=True)
@@ -1056,7 +1385,8 @@ def main() -> int:
         by_path = {"slice": slice_phase(path, cfg, ref, imgs),
                    "quads": quads_phase(cfg, ref, imgs),
                    "stream": stream_phase(path, cfg, ref, imgs),
-                   "slam": slam_phase(cfg, ref, imgs)}
+                   "slam": slam_phase(cfg, ref, imgs),
+                   "loop": loop_phase()}
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1

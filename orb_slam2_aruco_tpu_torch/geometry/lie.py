@@ -1,8 +1,9 @@
 """SO3 / SE3 operations, batched over leading dims.
 
-Port of orb_slam2_aruco_tpu/geometry/lie.py (the functions the localization
-slice uses). Rotations are 3x3 matrices; poses are (R, t) pairs. Includes the
-atan2-stable `so3_log` (finite everywhere, including at R = I).
+Port of orb_slam2_aruco_tpu/geometry/lie.py. Rotations are 3x3 matrices;
+poses are (R, t) pairs; similarities are (s, R, t) triples, x -> s R x + t
+(g2o/types/sim3.h). Includes the atan2-stable `so3_log` (finite
+everywhere, including at R = I).
 """
 
 from __future__ import annotations
@@ -92,6 +93,22 @@ def _so3_left_jacobian(w):
     return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * (W @ W)
 
 
+def _so3_left_jacobian_inv(w):
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _EPS
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    half = theta * 0.5
+    sin_half = torch.sin(half)
+    sin_half_safe = torch.where(torch.abs(sin_half) < 1e-12,
+                                torch.ones_like(sin_half), sin_half)
+    cot = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                      (1.0 - half * torch.cos(half) / sin_half_safe)
+                      / theta2_safe)
+    W = hat(w)
+    return _eye_like(W) - 0.5 * W + cot[..., None, None] * (W @ W)
+
+
 def se3_exp(xi):
     """xi [..., 6] = (upsilon, omega) -> (R [..., 3, 3], t [..., 3])."""
     v, w = xi[..., :3], xi[..., 3:]
@@ -155,3 +172,70 @@ def quat_to_rot(q):
 def orthonormalize(R):
     """Project near-rotations back onto SO(3) through a unit quaternion."""
     return quat_to_rot(rot_to_quat(R))
+
+
+# ---------------------------------------------------------------------------
+# Sim3 (s, R, t): x -> s R x + t
+# ---------------------------------------------------------------------------
+
+
+def sim3_apply(s, R, t, x):
+    return s[..., None] * (R @ x[..., None])[..., 0] + t
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    """(sa,Ra,ta) * (sb,Rb,tb)."""
+    return sa * sb, Ra @ Rb, sa[..., None] * (Ra @ tb[..., None])[..., 0] + ta
+
+
+def sim3_inverse(s, R, t):
+    sinv = 1.0 / torch.clamp(s, min=_EPS)
+    Rinv = R.transpose(-1, -2)
+    return sinv, Rinv, -sinv[..., None] * (Rinv @ t[..., None])[..., 0]
+
+
+def _sim3_V(sigma, w, s):
+    """The W matrix of sim3_exp, V = X I + A W + B W^2 (Sophus RxSO3 / Sim3
+    closed form, the JAX package's Taylor guards), from (sigma, omega)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    tiny = theta2 < _EPS
+    theta = torch.where(tiny, torch.zeros_like(theta2),
+                        torch.sqrt(torch.where(tiny, torch.ones_like(theta2),
+                                               theta2)))
+    W = hat(w)
+    small_sigma = torch.abs(sigma) < 1e-5
+    small_theta = theta < 1e-5
+    one = torch.ones_like(sigma)
+    sigma_safe = torch.where(small_sigma, one, sigma)
+    theta_safe = torch.where(small_theta, one, theta)
+    X = torch.where(small_sigma, 1.0 + sigma / 2.0, (s - 1.0) / sigma_safe)
+    a_ = s * torch.sin(theta)
+    b_ = s * torch.cos(theta)
+    c2 = sigma * sigma + theta2
+    c2_safe = torch.where(c2 < 1e-12, one, c2)
+    zero = torch.zeros_like(theta)
+    A = torch.where(small_theta, zero,
+                    (a_ * sigma + (1.0 - b_) * theta) / (theta_safe * c2_safe))
+    B = torch.where(small_theta, zero,
+                    (X - ((b_ - 1.0) * sigma + a_ * theta) / c2_safe)
+                    / torch.where(small_theta, one, theta2))
+    return (X[..., None, None] * _eye_like(W) + A[..., None, None] * W
+            + B[..., None, None] * (W @ W))
+
+
+def sim3_exp(xi):
+    """xi [..., 7] = (upsilon, omega, sigma) -> (s, R, t)."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    V = _sim3_V(sigma, w, s)
+    return s, so3_exp(w), (V @ v[..., None])[..., 0]
+
+
+def sim3_log(s, R, t):
+    """Inverse of sim3_exp -> [..., 7] (upsilon, omega, sigma), V solved
+    numerically as in the JAX package (`solve_ex`: no host check)."""
+    sigma = torch.log(torch.clamp(s, min=_EPS))
+    w = so3_log(R)
+    V = _sim3_V(sigma, w, s)
+    v = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]
+    return torch.cat([v, w, sigma[..., None]], dim=-1)

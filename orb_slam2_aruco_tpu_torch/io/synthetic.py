@@ -5,7 +5,10 @@ Port of orb_slam2_aruco_tpu/io/synthetic.py — the same numpy code, so a
 world and a view rendered here are bit-identical to the JAX package's (the
 JAX module imports its dictionary module, and through it jax, which the
 card's machine does not have). Conventions (plane z = 0, texture y down,
-marker corner order) are documented in the JAX module.
+marker corner order) are documented in the JAX module. `inject_drift`
+displaces a SlamSystem's late map by a known rigid transform, the
+controlled drift of the loop-closure scenes
+(tests/test_pipeline.py::test_full_system_loop_closure).
 """
 
 from __future__ import annotations
@@ -154,3 +157,47 @@ def look_at_plane_pose(cam_xy: Tuple[float, float], distance: float,
     ccenter = np.asarray([cam_xy[0], cam_xy[1], -distance], dtype=np.float32)
     tcw = (-Rcw @ ccenter).astype(np.float32)
     return Rcw, tcw
+
+
+def inject_drift(system, cutoff_fid: int, Rd, td):
+    """Displace the map segment a SlamSystem built after frame
+    `cutoff_fid`, and its tracking context, by the world transform D
+    (X' = Rd X + td), as tests/test_pipeline.py's helper does on the JAX
+    package's map: the points the segment's keyframes are the reference
+    of and the markers only they observe move by D, the tracking context
+    by Tcw' = Tcw D^-1, and the keyframes to R' = R Rd, t' = t - R' td (the
+    helper turns them by Rd, not Rd^T: the segment comes out 2 angle(Rd)
+    off its points, more drift to close)."""
+    import torch
+
+    st = system.map
+    dev = st.kf_Rcw.device
+    Rd = torch.as_tensor(np.asarray(Rd, np.float32)).to(dev)
+    td = torch.as_tensor(np.asarray(td, np.float32)).to(dev)
+    late_kf = st.kf_valid & (st.kf_frame_id > cutoff_fid)
+    R2 = st.kf_Rcw @ Rd
+    t2 = st.kf_tcw - (R2 @ td[:, None])[..., 0]
+    ref = torch.clamp(st.pt_ref_kf, 0, st.K - 1)
+    late_pt = st.pt_valid & (st.pt_ref_kf >= 0) & late_kf[ref]
+    obs = (st.kf_mk_slot >= 0) & st.kf_mk_valid & st.kf_valid[:, None]
+    M = st.M
+
+    def observed(mask):
+        hit = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+        return hit.index_fill_(0, torch.where(mask, st.kf_mk_slot, M)
+                               .reshape(-1), True)[:M]
+
+    late_mk = (st.mk_valid & observed(obs)
+               & ~observed(obs & ~late_kf[:, None]))
+    system.map = st._replace(
+        kf_Rcw=torch.where(late_kf[:, None, None], R2, st.kf_Rcw),
+        kf_tcw=torch.where(late_kf[:, None], t2, st.kf_tcw),
+        pt_xyz=torch.where(late_pt[:, None], st.pt_xyz @ Rd.T + td,
+                           st.pt_xyz),
+        mk_Rwm=torch.where(late_mk[:, None, None], Rd @ st.mk_Rwm,
+                           st.mk_Rwm),
+        mk_twm=torch.where(late_mk[:, None], st.mk_twm @ Rd.T + td,
+                           st.mk_twm))
+    Rl, tl = system.last_pose
+    Rl2 = Rl @ Rd.T
+    system.last_pose = (Rl2, tl - Rl2 @ td)

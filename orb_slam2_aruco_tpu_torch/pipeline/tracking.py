@@ -9,6 +9,8 @@ localization slice runs (reference Tracking::Track, src/Tracking.cc:192-492):
   * TrackWithMotionModel (Tracking.cc:995-1060) -> track_frame
   * TrackReferenceKeyFrame (Tracking.cc:910-982)-> track_vs_keyframe
   * TrackLocalMap (Tracking.cc:1242-1293)       -> track_local_map
+  * Relocalization (Tracking.cc:1741-1914)      -> reloc_candidates,
+                                                   reloc_pnp
   * the whole OK-state cascade                  -> track_full
   * a chunk of localization frames              -> track_batch
 
@@ -35,7 +37,7 @@ from orb_slam2_aruco_tpu_torch.geometry.lie import (
 )
 from orb_slam2_aruco_tpu_torch.ops import matching
 from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
-from orb_slam2_aruco_tpu_torch.optim import pose_opt
+from orb_slam2_aruco_tpu_torch.optim import pnp, pose_opt
 from orb_slam2_aruco_tpu_torch.optim.residuals import (
     marker_corner_points_world,
 )
@@ -43,6 +45,10 @@ from orb_slam2_aruco_tpu_torch.pipeline.frontend import (
     Frame,
     make_frame,
     scale_sigma2,
+)
+from orb_slam2_aruco_tpu_torch.worldmap import retrieval
+from orb_slam2_aruco_tpu_torch.worldmap.covisibility import (
+    covisibility_matrix,
 )
 from orb_slam2_aruco_tpu_torch.worldmap.state import MapState
 
@@ -299,6 +305,44 @@ def track_vs_keyframe(state: MapState, frame: Frame, slots, kf, Rcw0, tcw0,
                              cfg, old)
     return TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers,
                        m.valid.sum())
+
+
+def reloc_candidates(state: MapState, frame: Frame, cfg: SlamConfig,
+                     max_candidates: int = 4):
+    """BoW relocalization candidates (DetectRelocalizationCandidates,
+    src/KeyFrameDatabase.cc:199+): the loop candidates' shared-word and
+    covisible-group gates without the minimum score. (idx, acc, keep)."""
+    return retrieval.detect_candidates_grouped(
+        frame.bow, state.kf_bow, state.kf_valid,
+        covis_w=covisibility_matrix(state).to(torch.float32),
+        exclude_mask=torch.zeros_like(state.kf_valid), min_score=0.0,
+        max_candidates=max_candidates)
+
+
+def reloc_pnp(state: MapState, frame: Frame, slots, kf, cam: Camera,
+              cfg: SlamConfig) -> TrackResult:
+    """Relocalization against one candidate keyframe (Relocalization,
+    Tracking.cc:1741-1914): mutual descriptor matches give 2D-3D pairs,
+    RANSAC PnP a pose, the pose LM refines it. n_inliers is 0 when PnP
+    found too few inliers; n_matches holds PnP's inlier count."""
+    kf_obs = row(state.kf_obs_point, kf)
+    kf_valid = (row(state.kf_kp_valid, kf) & (kf_obs >= 0)
+                & state.pt_valid[torch.clamp(kf_obs, min=0)])
+    d = matching.distance_matrix(row(state.kf_desc, kf), frame.desc,
+                                 kf_valid, frame.kp_valid)
+    m = matching.nn_match(d, max_dist=float(cfg.matcher.th_low),
+                          nn_ratio=0.75, mutual=True)
+    N = frame.kp_uv.shape[0]
+    obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
+                             torch.where(m.valid, kf_obs, -1))
+    pts, pvalid = _point_world_arrays(state, obs_point)
+    res = pnp.ransac_pnp(pts, frame.kp_uv, pvalid & frame.kp_valid, cam,
+                         chi2_th=cfg.optim.chi2_mono,
+                         min_inliers=cfg.tracking.min_inliers_track)
+    opt, obs_out = _optimize(state, frame, slots, res.Rcw, res.tcw,
+                             obs_point, cam, cfg)
+    return TrackResult(opt.Rcw, opt.tcw, obs_out,
+                       torch.where(res.ok, opt.n_inliers, 0), res.n_inliers)
 
 
 def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,

@@ -37,3 +37,13 @@ def covisible_neighbors(W, kf, min_weight: int, max_n: int):
     row[kf] = 0
     vals, idx = stable_topk(row, max_n)
     return idx, vals, vals >= min_weight
+
+
+def spanning_parent(W, kf_valid, kf_order):
+    """Parent of each keyframe: its best covisible among the earlier ones
+    (the reference's spanning tree, KeyFrame.cc:441-475), by the insertion
+    order kf_order [K]. [K] parent slot, -1 for roots."""
+    earlier = (kf_order[None, :] < kf_order[:, None]) & kf_valid[None, :]
+    Wm = torch.where(earlier, W, -1)
+    best, parent = torch.max(Wm, dim=1)
+    return torch.where((best > 0) & kf_valid, parent, -1)

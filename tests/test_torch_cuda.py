@@ -10,6 +10,8 @@ The input builders here are shared with tests/test_torch_kernels.py, which
 holds the plain versions to the JAX package's Pallas kernels on the CPU.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -348,3 +350,52 @@ def test_threefry_draws_on_the_card_equal_the_cpu_draws(cuda_device):
         threefry.choice_p(threefry.PRNGKey(0), (128, 8), pd)))
     assert torch.equal(out[0].cpu(), want)
     assert n == 0, where
+
+
+@pytest.mark.cuda
+def test_pnp_draws_and_ransac_on_the_card(cuda_device):
+    """ransac_pnp's choice draw at the full configuration's keypoint count
+    (N = 1000) gives the CPU's indices on the card, ransac_pnp the CPU's
+    pose, and its only synchronizing calls are its four batched SVDs (two
+    each on the card) and one eigh: cuSOLVER's error codes, read on the
+    host (no _ex form)."""
+    import chip_smoke
+    from orb_slam2_aruco_tpu_torch.geometry import camera as tcam_
+    from orb_slam2_aruco_tpu_torch.optim import pnp
+    from orb_slam2_aruco_tpu_torch.utils import threefry
+
+    rng = np.random.default_rng(11)
+    n = 1000
+    m = torch.as_tensor((rng.random(n) < 0.6).astype(np.float32))
+    p = m / torch.clamp(m.sum(), min=1.0)
+    want = threefry.choice_p(threefry.PRNGKey(0), (256, 6), p)
+    got = threefry.choice_p(threefry.PRNGKey(0), (256, 6), p.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+    # a planar scene with outliers, as relocalization against a wall sees
+    xyz = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                    np.full(n, 5.0)], -1).astype(np.float32)
+    pc = xyz + np.asarray([0.3, -0.2, 0.4], np.float32)
+    uv = np.stack([500 * pc[:, 0] / pc[:, 2] + 480,
+                   500 * pc[:, 1] / pc[:, 2] + 270], -1).astype(np.float32)
+    uv[:200] += rng.uniform(25, 60, size=(200, 2)).astype(np.float32)
+    cam = tcam_.camera_from_numpy(dict(fx=500.0, fy=500.0, cx=480.0,
+                                       cy=270.0, width=960, height=540,
+                                       dist=np.zeros(5, np.float32)))
+    args = [torch.as_tensor(a) for a in (xyz, uv, m)]
+    want = pnp.ransac_pnp(*args, cam)
+    camd = tcam_.camera_from_numpy(dict(cam._asdict()), cuda_device)
+    argsd = [a.to(cuda_device) for a in args]
+    pnp.ransac_pnp(*argsd, camd)                                 # warm
+    out = []
+    calls, where = chip_smoke.port_sync_calls(
+        lambda: out.append(pnp.ransac_pnp(*argsd, camd)))
+    got = out[0]
+    assert int(got.n_inliers) == int(want.n_inliers)
+    torch.testing.assert_close(got.Rcw.cpu(), want.Rcw, rtol=0, atol=1e-4)
+    import linecache
+
+    assert calls <= 9, where
+    for (f, line), _ in where.items():
+        assert os.path.basename(f) == "pnp.py", where
+        code = linecache.getline(f, line)
+        assert "linalg.svd" in code or "linalg.eigh" in code, (line, code)

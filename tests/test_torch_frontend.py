@@ -359,13 +359,14 @@ def test_port_imports_no_jax():
         "cc_propagate\n"
         "from orb_slam2_aruco_tpu_torch.ops.aruco import detector\n"
         "from orb_slam2_aruco_tpu_torch.pipeline import initializer, "
-        "mapping\n"
-        "from orb_slam2_aruco_tpu_torch.geometry import triangulate, "
+        "loop_closing, mapping\n"
+        "from orb_slam2_aruco_tpu_torch.geometry import horn, triangulate, "
         "twoview\n"
-        "from orb_slam2_aruco_tpu_torch.optim import ba\n"
+        "from orb_slam2_aruco_tpu_torch.optim import ba, pnp, pose_graph, "
+        "sim3_opt\n"
         "from orb_slam2_aruco_tpu_torch.utils import consts, threefry\n"
         "from orb_slam2_aruco_tpu_torch.worldmap import covisibility, "
-        "state\n"
+        "retrieval, state\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('orb_slam2_aruco_tpu.')"
         " or m == 'orb_slam2_aruco_tpu']\n"

@@ -27,12 +27,20 @@ at tracking.pipeline_depth 0 over the map frames and the localization of
 the reference frames against the map it built (`ref_slam_*`; ref_small
 also holds the system's state before every step).
 
+`add_loop_reference` adds, to both files, the JAX SlamSystem over a loop
+scene (`LOOP_SETUPS`; `ref_loop_*`): a pan away from the markers and back
+with the test_full_system_loop_closure drift injected, the loop it closes
+and the global BA drained, then black, noise, BoW-PnP and marker
+relocalization frames; ref_small also holds the system's state before the
+loop step and after the drain (`ref_loop_snap_*`).
+
 Each file is a valid map checkpoint (the JAX and the port's load_map read
 it) with the reference arrays under `ref_*` keys. Regenerate everything
-with `--regen`, or only the serving or SLAM keys with `--serving` or
-`--slam` (the existing keys stay byte-equal):
+with `--regen`, or only the serving, SLAM or loop keys with `--serving`,
+`--slam` or `--loop` (the existing keys stay byte-equal):
 
-    python tests/test_torch_slice.py --regen|--serving|--slam [small|full]
+    python tests/test_torch_slice.py --regen|--serving|--slam|--loop \
+        [small|full]
 """
 
 from __future__ import annotations
@@ -125,18 +133,22 @@ def _full_setup():
 SETUPS = {"small": _small_setup, "full": _full_setup}
 
 
-def render_frames(syn, world_kw, camc, params, dict_name="ARUCO"):
-    """uint8 frames and ground-truth poses for (x, y, dist, yaw, pitch)
-    render parameters; `syn` is either package's io.synthetic."""
+def render_frames(syn, world_kw, camc, params, dict_name="ARUCO",
+                  uint8=True):
+    """Frames (uint8, or the renderer's float32) and ground-truth poses for
+    (x, y, dist, yaw, pitch) render parameters; `syn` is either package's
+    io.synthetic."""
     world = syn.build_world(world_kw["marker_ids"], dict_name=dict_name,
                             marker_size=world_kw["marker_size"],
                             grid_cols=world_kw["grid_cols"],
                             spacing=world_kw["spacing"],
-                            px_per_m=world_kw["px_per_m"])
+                            px_per_m=world_kw["px_per_m"],
+                            extent_margin=world_kw.get("extent_margin", 0.5))
     poses = [syn.look_at_plane_pose((x, y), d, yaw=yaw, pitch=pitch)
              for x, y, d, yaw, pitch in params]
-    imgs = [np.clip(syn.render_view(world, camc, R, t), 0, 255)
-            .astype(np.uint8) for R, t in poses]
+    imgs = [syn.render_view(world, camc, R, t) for R, t in poses]
+    if uint8:
+        imgs = [np.clip(im, 0, 255).astype(np.uint8) for im in imgs]
     return imgs, poses
 
 
@@ -576,21 +588,353 @@ def add_slam_reference(which=("small", "full"), out_dir=DATA_DIR):
               f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# loop closing and BoW-PnP relocalization (ref_loop_* keys)
+# ---------------------------------------------------------------------------
+
+# the controlled drift of tests/test_pipeline.py::
+# test_full_system_loop_closure: the map built after frame LOOP_CUTOFF is
+# rigidly displaced by (so3_exp(LOOP_DRIFT_W), LOOP_DRIFT_T) once frame
+# LOOP_INJECT is tracked
+LOOP_DRIFT_W = (0.0, -0.06, 0.0)
+LOOP_DRIFT_T = (0.65, 0.0, 0.2)
+LOOP_INJECT, LOOP_CUTOFF = 32, 18
+# frames after the pan: -1 black (tracking is lost), -2 binary noise (no
+# structure of the map: must not relocalize), k the pan's frame k
+BLACK, NOISE = -1, -2
+
+
+def loop_cfg(cfg):
+    """The loop scenes' SLAM settings (test_full_system_loop_closure): a
+    keyframe every 2 frames (kf_ref_ratio 2 passes NeedNewKeyFrame's c2),
+    loops after 6 keyframes, no keyframe culling; depth 0. Either
+    package's SlamConfig."""
+    return cfg.replace(
+        loop=dataclasses.replace(cfg.loop, min_kfs_between_loops=6),
+        tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=30,
+                                     min_frames_between_kf=2,
+                                     kf_ref_ratio=2.0, pipeline_depth=0),
+        map=dataclasses.replace(cfg.map, kf_cull_redundancy=1.1))
+
+
+def _pan(n, x0, x1, y, dist, pitch=0.03, n_back=None):
+    """Render parameters of a pan from x0 to x1 in n // 2 frames and back
+    to x0 in the other n - n // 2, or only the first n_back of those."""
+    xs = np.concatenate([np.linspace(x0, x1, n // 2),
+                         np.linspace(x1, x0, n - n // 2)[:n_back]])
+    return [(float(x), y, dist, 0.0, pitch) for x in xs]
+
+
+def _loop_small():
+    """test_full_system_loop_closure's own scene and configuration: 4
+    markers at the left of a long wall, a 60-frame pan away and back."""
+    from orb_slam2_aruco_tpu.config import CameraConfig, SlamConfig
+
+    camc = CameraConfig(fx=300.0, fy=300.0, cx=160.0, cy=120.0,
+                        dist=(0, 0, 0, 0, 0), width=320, height=240)
+    cfg = SlamConfig().replace(camera=camc)
+    cfg = cfg.replace(
+        orb=dataclasses.replace(cfg.orb, num_features=700),
+        map=dataclasses.replace(cfg.map, max_keyframes=40, max_points=4096,
+                                max_markers=16))
+    world = dict(marker_ids=[3, 17, 42, 99], px_per_m=700.0, spacing=0.45,
+                 grid_cols=2, marker_size=0.165, extent_margin=2.2)
+    extra = [BLACK, BLACK, NOISE, LOOP_EXTRA["small"][0], BLACK, BLACK,
+             LOOP_EXTRA["small"][1]]
+    return loop_cfg(cfg), world, _pan(60, 0.2, 1.4, 0.22, 1.2), extra
+
+
+def _loop_full():
+    """The scene at the bench configuration's widths (_full_setup's camera,
+    features, levels, detect_downsample and capacities): the bench
+    world's 8 marker ids in two columns at the left of a wall 8 m wide; a
+    pan 1.2 m from it, 40 frames away (the markers leave the view at frame
+    23) and 22 frames back, to where the markers are back in view and the
+    loop has closed (frame 60: 31 keyframes, so the post-loop global BA
+    takes the CG branch). The return stops there: the JAX package's own run
+    one float32 ulp apart leaves this one from frame 64 on, where it was
+    continued to the start (tools/torch_loop_sensitivity.py)."""
+    cfg, _, _, _ = _full_setup()
+    world = dict(marker_ids=[3, 17, 42, 99, 7, 23, 55, 88], px_per_m=500.0,
+                 spacing=0.45, grid_cols=2, marker_size=0.165,
+                 extent_margin=3.8)
+    extra = [BLACK, BLACK, NOISE, LOOP_EXTRA["full"][0], BLACK, BLACK,
+             LOOP_EXTRA["full"][1]]
+    return (loop_cfg(cfg), world,
+            _pan(80, 0.2, 2.8, 0.675, 1.2, n_back=22),
+            extra)
+
+
+# the step closing the small scene's loop, where its snapshot is taken
+LOOP_SNAPSHOT_STEP = {"small": 41}
+# (marker-free frame of the away leg, start-area frame) fed after the pan
+LOOP_EXTRA = {"small": (26, 2), "full": (24, 2)}
+LOOP_SETUPS = {"small": _loop_small, "full": _loop_full}
+
+
+def jax_inject_drift(slam, cutoff_fid, Rd, td):
+    """test_full_system_loop_closure's drift on the JAX SlamSystem: the
+    late map segment and the tracking context displaced by X' = Rd X + td,
+    Tcw' = Tcw D^-1."""
+    import jax.numpy as jnp
+
+    st = slam.map
+    Rd = jnp.asarray(Rd, jnp.float32)
+    td = jnp.asarray(td, jnp.float32)
+    late_kf = st.kf_valid & (st.kf_frame_id > cutoff_fid)
+    R2 = jnp.einsum("kij,lj->kil", st.kf_Rcw, Rd.T)
+    t2 = st.kf_tcw - jnp.einsum("kij,j->ki", R2, td)
+    ref = jnp.clip(st.pt_ref_kf, 0, st.K - 1)
+    late_pt = st.pt_valid & (st.pt_ref_kf >= 0) & late_kf[ref]
+    obs = (st.kf_mk_slot >= 0) & st.kf_mk_valid & st.kf_valid[:, None]
+    M = st.M
+    any_obs = jnp.zeros((M,), bool).at[
+        jnp.where(obs, st.kf_mk_slot, M)].max(obs, mode="drop")
+    early = obs & ~late_kf[:, None]
+    early_obs = jnp.zeros((M,), bool).at[
+        jnp.where(early, st.kf_mk_slot, M)].max(early, mode="drop")
+    late_mk = st.mk_valid & any_obs & ~early_obs
+    slam.map = st._replace(
+        kf_Rcw=jnp.where(late_kf[:, None, None], R2, st.kf_Rcw),
+        kf_tcw=jnp.where(late_kf[:, None], t2, st.kf_tcw),
+        pt_xyz=jnp.where(late_pt[:, None], st.pt_xyz @ Rd.T + td, st.pt_xyz),
+        mk_Rwm=jnp.where(late_mk[:, None, None],
+                         jnp.einsum("ij,mjk->mik", Rd, st.mk_Rwm), st.mk_Rwm),
+        mk_twm=jnp.where(late_mk[:, None], st.mk_twm @ Rd.T + td,
+                         st.mk_twm))
+    Rl, tl = slam.last_pose
+    Rl2 = Rl @ Rd.T
+    slam.last_pose = (Rl2, tl - Rl2 @ td)
+
+
+def loop_extra_frame(k, imgs):
+    """The frame of an entry of the extra list."""
+    if k == BLACK:
+        return np.zeros_like(imgs[0])
+    if k == NOISE:
+        rng = np.random.default_rng(3)
+        return (rng.integers(0, 2, size=imgs[0].shape) * 255).astype(
+            np.float32)
+    return imgs[k]
+
+
+def seam_error(fids, Rs, ts, gt):
+    """test_full_system_loop_closure's contract: the first -> last keyframe
+    translation in the first keyframe's frame against the ground truth's
+    (gauge-free), in metres. gt: the pan's (R, t) per frame."""
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+
+    est_c = trajectory.camera_centers(Rs, ts)
+    gt_c = trajectory.camera_centers([gt[i][0] for i in fids],
+                                     [gt[i][1] for i in fids])
+    rel_est = np.asarray(Rs[0], np.float64) @ (est_c[-1] - est_c[0])
+    rel_gt = np.asarray(gt[fids[0]][0], np.float64) @ (gt_c[-1] - gt_c[0])
+    return float(np.linalg.norm(rel_est - rel_gt))
+
+
+LOOP_HOST = ("pending_gba_iters", "pending_gba_fuse", "_gba_shape_kfs",
+             "_gba_pt_offset", "last_loop_kf_count")
+
+
+def _loop_snapshot(slam, frame):
+    """_slam_snapshot and the loop closing's host state: LOOP_HOST, the GBA
+    bucket (0, 0 if none) and the BoW consistency groups ([8, 2], rows of
+    -1 after the last)."""
+    out = _slam_snapshot(slam, frame)
+    for a in LOOP_HOST:
+        out[a] = np.asarray(int(getattr(slam, a, 0)), np.int64)
+    out["gba_shape"] = np.asarray(slam._gba_shape or (0, 0), np.int64)
+    prev = np.full((8, 2), -1, np.int64)
+    groups = slam.bow_consistency.prev[:8]
+    prev[:len(groups)] = np.asarray(groups, np.int64).reshape(-1, 2)
+    out["bow_prev"] = prev
+    return out
+
+
+def jax_loop_run(name, nudge=None, extra=None, snapshots=None):
+    """The JAX SlamSystem at depth 0 over a loop scene: the pan with the
+    drift injected after frame LOOP_INJECT, keyframe_trajectory() (the
+    pending global BA drained), then the extra frames (`extra` replaces the
+    scene's list). `nudge` maps each Frame before it is stepped
+    (tools/torch_loop_sensitivity.py). Returns the ref_loop_* arrays
+    without the prefix; corr_kf_* are the keyframe poses the first loop
+    correction left, before any global BA slice. Where `snapshots` is a
+    list it receives the system's state (_loop_snapshot) before the step
+    that closes the first loop and before the first extra frame."""
+    from unittest import mock
+
+    import jax.numpy as jnp
+
+    from orb_slam2_aruco_tpu.geometry.lie import so3_exp
+    from orb_slam2_aruco_tpu.io import synthetic as jsyn
+    from orb_slam2_aruco_tpu.pipeline import loop_closing, tracking
+    from orb_slam2_aruco_tpu.pipeline.frontend import make_frame
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem
+
+    cfg, world, params, scene_extra = LOOP_SETUPS[name]()
+    extra = scene_extra if extra is None else extra
+    snapshots_at = [LOOP_SNAPSHOT_STEP.get(name, -1)]
+    imgs, gt = render_frames(jsyn, world, cfg.camera, params,
+                             cfg.aruco.dictionary, uint8=False)
+    slam = SlamSystem(cfg)
+    loops, kind, step, corrected = [], [], [0], []
+    real = {f: getattr(loop_closing, f) for f in
+            ("correct_loop", "compute_sim3", "compute_sim3_classic")}
+
+    def correct(state, k, kf_loop, s, R, t, *a, **kw):
+        loops.append((step[0], int(k), int(kf_loop), kind[-1], float(s),
+                      np.asarray(R), np.asarray(t)))
+        out = real["correct_loop"](state, k, kf_loop, s, R, t, *a, **kw)
+        if not corrected:
+            v = np.asarray(out[0].kf_valid)
+            order = np.argsort(np.asarray(out[0].kf_frame_id)[v])
+            corrected.extend(np.asarray(getattr(out[0], f))[v][order]
+                             for f in ("kf_frame_id", "kf_Rcw", "kf_tcw"))
+        return out
+
+    def sim3(by_marker):
+        fn = real["compute_sim3" if by_marker else "compute_sim3_classic"]
+
+        def run(*a, **kw):
+            kind.append(int(by_marker))
+            return fn(*a, **kw)
+        return run
+
+    real_reloc = SlamSystem._relocalize
+    reloc_kind = {}
+
+    def relocalize(self, frame, fid, ts):
+        slots = tracking.bind_markers(self.map, frame)
+        ok = tracking.aruco_pose_candidate(self.map, frame, slots, self.cam,
+                                           self.cfg)[0]
+        before = self.stats["reloc"]
+        out = real_reloc(self, frame, fid, ts)
+        if self.stats["reloc"] > before:
+            reloc_kind[step[0]] = int(bool(ok))
+        return out
+
+    rec = {k: [] for k in ("state", "R", "t", "n_kf", "kf_insert",
+                           "n_points", "gba_cams")}
+
+    def do_step(img, ts, snap=False):
+        frame = make_frame(jnp.asarray(img), slam.cam, cfg)
+        if nudge is not None:
+            frame = nudge(frame)
+        if snap:
+            snapshots.append(_loop_snapshot(slam, frame))
+        fid = slam.frame_id
+        slam.frame_id += 1
+        before = slam.stats["kf_inserted"]
+        p = slam._step_frame(frame, fid, ts)
+        R, t = (p if p is not None else
+                (np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))
+        for k, v in (("state", slam.state.value),
+                     ("R", np.asarray(R, np.float32)),
+                     ("t", np.asarray(t, np.float32)),
+                     ("n_kf", slam.n_keyframes),
+                     ("kf_insert", slam.stats["kf_inserted"] - before),
+                     ("n_points", int(slam.map.num_points())),
+                     ("gba_cams", slam._gba_shape[0] if slam._gba_shape
+                      else 0)):
+            rec[k].append(v)
+        step[0] += 1
+
+    with mock.patch.multiple(loop_closing, correct_loop=correct,
+                             compute_sim3=sim3(True),
+                             compute_sim3_classic=sim3(False)), \
+            mock.patch.object(SlamSystem, "_relocalize", relocalize):
+        for i, img in enumerate(imgs):
+            # the step closing the loop is known from a first run
+            do_step(img, i / 30.0, snapshots is not None
+                    and i == snapshots_at[0])
+            if i == LOOP_INJECT:
+                jax_inject_drift(slam, LOOP_CUTOFF, so3_exp(
+                    jnp.asarray(LOOP_DRIFT_W, jnp.float32)), LOOP_DRIFT_T)
+        kf_fid, _, kf_R, kf_t = slam.keyframe_trajectory()
+        n_valid = int(slam.map.num_points())
+        for j, k in enumerate(extra):
+            do_step(loop_extra_frame(k, imgs), 100.0 + j / 30.0,
+                    snapshots is not None and j == 0)
+    out = {k: np.asarray(v, np.float32 if k in ("R", "t") else np.int32)
+           for k, v in rec.items()}
+    L = len(loops)
+    out.update(
+        cfg=np.asarray(json.dumps(dataclasses.asdict(cfg))),
+        world=np.asarray(json.dumps(world)),
+        params=np.asarray(params, np.float64),
+        extra=np.asarray(extra, np.int32),
+        loops=np.asarray([lp[:4] for lp in loops], np.int32).reshape(L, 4),
+        loop_s=np.asarray([lp[4] for lp in loops], np.float32),
+        loop_R=np.asarray([lp[5] for lp in loops], np.float32).reshape(
+            L, 3, 3),
+        loop_t=np.asarray([lp[6] for lp in loops], np.float32).reshape(L, 3),
+        kf_fid=np.asarray(kf_fid, np.int32),
+        kf_R=np.asarray(kf_R, np.float32), kf_t=np.asarray(kf_t, np.float32),
+        corr_kf_fid=np.asarray(corrected[0], np.int32),
+        corr_kf_R=np.asarray(corrected[1], np.float32),
+        corr_kf_t=np.asarray(corrected[2], np.float32),
+        n_valid=np.asarray(n_valid, np.int32),
+        seam=np.asarray(seam_error(kf_fid, kf_R, kf_t, gt), np.float64),
+        reloc_marker=np.asarray([reloc_kind.get(i, -1)
+                                 for i in range(len(out["state"]))],
+                                np.int32),
+        stats=np.asarray(json.dumps({k: int(v) for k, v in
+                                     slam.stats.items()
+                                     if not k.startswith("_")})))
+    return out
+
+
+def add_loop_reference(which=("small", "full"), out_dir=DATA_DIR):
+    """Record, into the existing ref_<which>.npz, the JAX SlamSystem over
+    its loop scene (jax_loop_run: ref_loop_* keys; the other keys stay
+    byte-equal)."""
+    import time
+
+    for name in which:
+        t0 = time.perf_counter()
+        path = os.path.join(out_dir, f"ref_{name}.npz")
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files
+                      if not k.startswith("ref_loop_")}
+        snaps = [] if name in LOOP_SNAPSHOT_STEP else None
+        run = jax_loop_run(name, snapshots=snaps)
+        arrays.update({f"ref_loop_{k}": v for k, v in run.items()})
+        if snaps:
+            if len(snaps) != 2:
+                raise RuntimeError(f"{name}: {len(snaps)} snapshots")
+            arrays.update({f"ref_loop_snap_{k}":
+                           np.stack([sn[k] for sn in snaps])
+                           for k in snaps[0]})
+        np.savez_compressed(path, **arrays)
+        n = len(run["params"])
+        print(f"{path}: loop scene states {run['state'].tolist()}, inserts "
+              f"at {np.flatnonzero(run['kf_insert'][:n]).tolist()}, loops "
+              f"{run['loops'].tolist()} (GBA cameras "
+              f"{sorted(set(run['gba_cams'].tolist()))}), keyframes "
+              f"{len(run['kf_fid'])}, points {int(run['n_valid'])}, seam "
+              f"{float(run['seam']):.5f} m, relocalizations (marker) "
+              f"{run['reloc_marker'].tolist()}, stats {str(run['stats'])}, "
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
+
+
 if __name__ == "__main__":
-    modes = ("--regen", "--serving", "--slam")
+    modes = ("--regen", "--serving", "--slam", "--loop")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
-                 "--regen|--serving|--slam [small|full]")
+                 "--regen|--serving|--slam|--loop [small|full]")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
     if "--regen" in sys.argv:
         build_reference_data(picked)
         add_slam_reference(picked)
+        add_loop_reference(picked)
     elif "--serving" in sys.argv:
         add_serving_reference(picked)
-    else:
+    elif "--slam" in sys.argv:
         add_slam_reference(picked)
+    else:
+        add_loop_reference(picked)
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +1043,42 @@ def test_full_reference_file_is_a_complete_recording():
     assert 0.0 < float(ref["ref_ate"]) < 0.05
     assert os.path.getsize(path) + os.path.getsize(
         os.path.join(DATA_DIR, "ref_small.npz")) < 4 * 2**20
+
+
+# sha256 over (name, dtype, shape, bytes) of every key a file held before
+# the loop recording (ref_loop_*) was added: --loop must leave them equal
+PRE_LOOP_DIGESTS = {
+    "small": (269, "c77007293266d991db1b87592e69fb69"
+                   "e536419b4d07a40f3ba59ef498acc4fe"),
+    "full": (83, "e41c4d47296cb4cfa2136be48cf28023"
+                 "3b6763a9dfea5aa3ce534f02313dd9d8"),
+}
+
+
+@pytest.mark.parametrize("name", ["small", "full"])
+def test_loop_recording_keeps_the_other_keys_byte_equal(name):
+    """`--loop` adds the ref_loop_* keys and leaves every other key of the
+    file byte-equal; the recording holds a loop closed by marker and the
+    BoW-PnP relocalization of a marker-free frame, and in ref_small the
+    start-area frame's relocalization by marker (JAX's full-width run
+    loses that frame after its loop: ROADMAP C2)."""
+    import hashlib
+
+    path = os.path.join(DATA_DIR, f"ref_{name}.npz")
+    h = hashlib.sha256()
+    with np.load(path) as z:
+        keys = sorted(k for k in z.files if not k.startswith("ref_loop_"))
+        for k in keys:
+            a = z[k]
+            for part in (k.encode(), str(a.dtype).encode(),
+                         str(a.shape).encode(), a.tobytes()):
+                h.update(part)
+        loops = z["ref_loop_loops"]
+        reloc = z["ref_loop_reloc_marker"]
+    assert (len(keys), h.hexdigest()) == PRE_LOOP_DIGESTS[name]
+    assert len(loops) >= 1 and loops[0, 3] == 1
+    kinds = {"small": [0, 1], "full": [0]}[name]
+    assert reloc[reloc >= 0].tolist() == kinds
 
 
 @pytest.mark.parametrize("with_scale", [False, True])
