@@ -64,7 +64,27 @@ capacity), in phases:
               classic (marker-free) two-view initialization: every
               synchronizing call by site, at most MAX_SLAM_SYNCS and
               MAX_CLASSIC_INIT_SYNCS.
-  8. loop     SLAM mode with loop closing and relocalization at the same
+  8. pipe     pipelined SLAM mode at the bench's depth (pipeline_depth 4,
+              data/ref_full.npz's own configuration): bench.py's SLAM pass
+              (bench.py:128-164) — a warm-up pass, then a timed pass over
+              the 32 map frames through StagedSource(batch=4), per-call
+              latency, flush and a device synchronize; slam_fps =
+              (n - drop) / (sum of latencies + flush), p50, p90 — and the
+              same pass at depth 0 on the same frames. The depth-4 run's
+              trajectory records (states, poses), the frames whose
+              processing created keyframes, the keyframes and their poses,
+              the valid points and the ATE held to the JAX package's
+              depth-4 run (ref_pipe_*, whose map is the file's map) within
+              the SLAM limits; the depth-0 run to ref_slam_* as the slam
+              phase holds it. Then save_map, load_map into a new system and
+              the 32 mid-point frames localized against it: states equal to
+              ref_ok, poses within 0.5 deg / 2 cm of ref_R / ref_t. Then the
+              32 frames at depth 4 under the sync debug mode: at most
+              MAX_PIPE_SYNCS, printed by site. Last, the port's two-pass
+              example (examples/mono_synthetic.py: 40 frames, --two-pass,
+              --save-map) must exit 0, write its TUM file and its map and
+              print an ATE.
+  9. loop     SLAM mode with loop closing and relocalization at the same
               widths and capacities (data/ref_full.npz, ref_loop_*): the
               bench world's markers at the left of a long wall, a pan away
               and back with the map built after frame 18 rigidly displaced
@@ -88,26 +108,29 @@ capacity), in phases:
               ms per insert, per GBA slice and per loop correction, and the
               loop frame's ms; then the scene once more under the sync
               debug mode: at most MAX_LOOP_SYNCS calls, printed by site.
-  9. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+ 10. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
-Launch counts are zeroed just before each of slice, quads, stream, slam and
-loop and read just after: each must have launched the kernels of its path
-(K1-K3 on slice, stream, slam and loop, K4 on quads), and K1, K2 and K3
-once per frame built.
+Launch counts are zeroed just before each of slice, quads, stream, slam,
+pipe (its timed depth-4 pass) and loop and read just after: each must have
+launched the kernels of its path (K1-K3 on slice, stream, slam, pipe and
+loop, K4 on quads), and K1, K2 and K3 once per frame built.
 Any failed phase exits non-zero before the last line is printed.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import linecache
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -161,6 +184,17 @@ MAX_CLASSIC_INIT_SYNCS = 10
 # Horn eigh (PERF.md section 5); 777 before the loop closing's element
 # writes of Python numbers became masks
 MAX_LOOP_SYNCS = 419
+# and for the pipelined SLAM run's 32 frames (depth 4) and its flush: the
+# cascade's branch reads (50), the initialization's reads (14), the
+# deferred point count read at the flush and the plane update's eigh. The
+# deferred reads (the control vectors, the cull victim, the loop
+# detections) are tracking.HostCopy's event waits, which the debug mode
+# does not report; tracking.SYNCS counts them (PERF.md section 5)
+MAX_PIPE_SYNCS = 66
+# the bench's SLAM pass: depth, frames per staged batch; the example's
+# frames
+PIPE_DEPTH, PIPE_BATCH = 4, 4
+EXAMPLE_FRAMES = 40
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -179,6 +213,7 @@ PATH_KERNELS = {
     "quads": ("cc_propagate",),
     "stream": ("fast", "patches", "cc_fused"),
     "slam": ("fast", "patches", "cc_fused"),
+    "pipe": ("fast", "patches", "cc_fused"),
     "loop": ("fast", "patches", "cc_fused"),
 }
 
@@ -907,7 +942,6 @@ def slam_phase(cfg, ref, loc_imgs):
     import torch
 
     from orb_slam2_aruco_tpu_torch import kernels
-    from orb_slam2_aruco_tpu_torch.io import trajectory
     from orb_slam2_aruco_tpu_torch.pipeline import tracking
     from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
     from orb_slam2_aruco_tpu_torch.pipeline.system import (
@@ -922,11 +956,11 @@ def slam_phase(cfg, ref, loc_imgs):
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     tracking.SYNCS["count"] = 0
-    poses, states, inserts, frame_s = [], [], [], []
+    states, inserts, frame_s = [], [], []
     for i, img in enumerate(imgs):
         before = system.stats["kf_inserted"]
         t0 = time.perf_counter()
-        poses.append(system.track_monocular(img, ts=i / 30.0))
+        system.track_monocular(img, ts=i / 30.0)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
         states.append(system.state.value)
@@ -938,46 +972,17 @@ def slam_phase(cfg, ref, loc_imgs):
     check_launches("slam", counts)
     check_frames_built("slam", counts, len(imgs))
 
-    want_states = ref["ref_slam_state"].tolist()
-    if states != want_states:
-        raise PhaseError(f"SLAM states differ from the JAX run: port "
-                         f"{states} vs JAX {want_states}")
     got_ins = np.flatnonzero(inserts).tolist()
     want_ins = np.flatnonzero(ref["ref_slam_kf_insert"]).tolist()
-    fids, _, _, _ = system.keyframe_trajectory()
-    if got_ins != want_ins or fids.tolist() != ref["ref_slam_kf_fid"].tolist():
-        raise PhaseError(f"keyframe inserts at {got_ins} (keyframes "
-                         f"{fids.tolist()}) vs the JAX run's {want_ins} "
-                         f"({ref['ref_slam_kf_fid'].tolist()})")
-    worst_r, worst_t = pose_errors(poses, ref["ref_slam_R"],
-                                   ref["ref_slam_t"])
-    if worst_r > SLAM_ROT_TOL_DEG or worst_t > SLAM_TRANS_TOL_M:
-        raise PhaseError(f"SLAM poses off the JAX run: {worst_r:.4f} deg, "
-                         f"{worst_t * 100:.4f} cm (limits {SLAM_ROT_TOL_DEG}"
-                         f" deg, {SLAM_TRANS_TOL_M * 100} cm)")
-    want_pts = int(ref["ref_slam_n_points"][-1])
-    if abs(n_points - want_pts) > SLAM_POINTS_TOL * want_pts:
-        raise PhaseError(f"{n_points} valid map points vs the JAX run's "
-                         f"{want_pts} (limit {SLAM_POINTS_TOL:.0%})")
-    ok = np.asarray(states) == TrackingState.OK.value
-    idx = np.flatnonzero(ok)
-    est_c = trajectory.camera_centers([poses[i][0] for i in idx],
-                                      [poses[i][1] for i in idx])
-    gt_c = trajectory.camera_centers(ref["ref_slam_gt_R"][ok],
-                                     ref["ref_slam_gt_t"][ok])
-    ate = trajectory.ate_rmse(est_c, gt_c, align=True, with_scale=False)
-    ref_ate = float(ref["ref_slam_ate"])
-    limit = max(1.5 * ref_ate, ref_ate + 0.005)
-    if not np.isfinite(ate) or ate > limit:
-        raise PhaseError(f"SLAM ATE {ate:.5f} m above {limit:.5f} m (JAX "
-                         f"{ref_ate:.5f} m)")
-    first_ok = int(idx[0])
+    if got_ins != want_ins:
+        raise PhaseError(f"keyframe inserts at {got_ins} vs the JAX run's "
+                         f"{want_ins}")
+    summary = hold_slam_run("SLAM", system, system.get_trajectory(), ref,
+                            "ref_slam_")
+    first_ok = states.index(TrackingState.OK.value)
     after = frame_s[first_ok + 1:]
-    phase("slam", f"{len(imgs)} frames, states and keyframe inserts {got_ins}"
-          f" (keyframes {fids.tolist()}) equal to JAX; poses within "
-          f"{worst_r:.5f} deg / {worst_t * 100:.5f} cm of JAX; {n_points} "
-          f"valid points (JAX {want_pts}); ATE {ate * 1000:.3f} mm (JAX "
-          f"{ref_ate * 1000:.3f} mm, limit {limit * 1000:.3f} mm)")
+    phase("slam", f"{len(imgs)} frames, keyframe inserts {got_ins} (= JAX);"
+          f" {summary}")
     phase("slam", f"SLAM: {len(after) / sum(after):.2f} fps over the "
           f"{len(after)} frames after initialization (frame {first_ok}); "
           f"initialization frame {frame_s[first_ok] * 1000:.1f} ms; median "
@@ -1082,6 +1087,247 @@ def slam_sync_phase(scfg, imgs):
     if n_init > MAX_CLASSIC_INIT_SYNCS:
         raise PhaseError(f"{n_init} synchronizing calls in the classic "
                          f"initialization, above {MAX_CLASSIC_INIT_SYNCS}")
+
+
+def bench_slam_pass(cfg, frames):
+    """bench.py's SLAM pass (bench.py:128-164) on a fresh system: the frames
+    through StagedSource(batch=PIPE_BATCH), each track_monocular call timed,
+    then flush and a device synchronize. Every keyframe the run creates is
+    recorded by its frame id, in order. Returns (system, the trajectory
+    records, keyframes created by frame, keyframes inserted by each call,
+    {slam_fps, p50_ms, p90_ms, flush_ms, drop})."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu_torch.pipeline import mapping
+    from orb_slam2_aruco_tpu_torch.pipeline.system import (
+        SlamSystem,
+        TrackingState,
+    )
+
+    created = []
+    real_create = mapping.create_keyframe
+
+    def create(*a, **kw):
+        created.append(int(a[6]))
+        return real_create(*a, **kw)
+
+    system = SlamSystem(cfg, device=DEVICE)
+    lat, per_call, ok_from = [], [], None
+    src = StagedSource([(f, k / 30.0) for k, f in enumerate(frames)],
+                       batch=PIPE_BATCH, device=DEVICE)
+    with mock.patch.object(mapping, "create_keyframe", create):
+        for j, (img, ts) in enumerate(src):
+            before = system.stats["kf_inserted"]
+            t0 = time.perf_counter()
+            system.track_monocular(img, ts=ts)
+            lat.append(time.perf_counter() - t0)
+            per_call.append(system.stats["kf_inserted"] - before)
+            if ok_from is None and system.state is TrackingState.OK:
+                ok_from = j
+        t0 = time.perf_counter()
+        system.flush()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+    drop = (ok_from if ok_from is not None else 4) + 2
+    steady = np.asarray(lat[drop:])
+    return system, system.get_trajectory(), created, per_call, dict(
+        slam_fps=(len(frames) - drop) / (steady.sum() + flush_s),
+        p50_ms=float(np.percentile(steady, 50) * 1e3),
+        p90_ms=float(np.percentile(steady, 90) * 1e3),
+        flush_ms=flush_s * 1e3, drop=drop)
+
+
+def hold_slam_run(label, system, records, ref, pre):
+    """Hold a SLAM run's trajectory records, keyframes (frame ids and
+    poses), valid points and ATE to the JAX run under ref[pre + ...]
+    (ref_slam_* or ref_pipe_*; ground truth ref_slam_gt_*) within the SLAM
+    limits. Returns a summary string."""
+    import numpy as np
+
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+
+    fids = [r.frame_id for r in records]
+    states = [r.state.value for r in records]
+    if fids != list(range(len(ref["ref_slam_gt_R"]))):
+        raise PhaseError(f"{label}: trajectory records for frames {fids}")
+    if states != ref[pre + "state"].tolist():
+        raise PhaseError(f"{label}: states differ from the JAX run: port "
+                         f"{states} vs JAX {ref[pre + 'state'].tolist()}")
+    kf_fid, _, kf_R, kf_t = system.keyframe_trajectory()
+    if kf_fid.tolist() != ref[pre + "kf_fid"].tolist():
+        raise PhaseError(f"{label}: keyframes at frames {kf_fid.tolist()} "
+                         f"vs JAX's {ref[pre + 'kf_fid'].tolist()}")
+    poses = [(r.Rcw, r.tcw) if r.state.value == 2 else None
+             for r in records]
+    worst_r, worst_t = pose_errors(poses, ref[pre + "R"], ref[pre + "t"])
+    kf_r, kf_tr = pose_errors(list(zip(kf_R, kf_t)), ref[pre + "kf_R"],
+                              ref[pre + "kf_t"])
+    if max(worst_r, kf_r) > SLAM_ROT_TOL_DEG or max(
+            worst_t, kf_tr) > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"{label}: poses off the JAX run: frames "
+                         f"{worst_r:.4f} deg / {worst_t * 100:.4f} cm, "
+                         f"keyframes {kf_r:.4f} deg / {kf_tr * 100:.4f} cm")
+    n_points = int(system.map.pt_valid.sum())
+    want_pts = int(ref[pre + "n_valid"] if pre + "n_valid" in ref
+                   else ref[pre + "n_points"][-1])
+    if abs(n_points - want_pts) > SLAM_POINTS_TOL * want_pts:
+        raise PhaseError(f"{label}: {n_points} valid map points vs the JAX "
+                         f"run's {want_pts}")
+    ok = np.asarray(states) == 2
+    est_c = trajectory.camera_centers([r.Rcw for r in records if
+                                       r.state.value == 2],
+                                      [r.tcw for r in records if
+                                       r.state.value == 2])
+    gt_c = trajectory.camera_centers(ref["ref_slam_gt_R"][ok],
+                                     ref["ref_slam_gt_t"][ok])
+    ate = trajectory.ate_rmse(est_c, gt_c, align=True, with_scale=False)
+    ref_ate = float(ref[pre + "ate"])
+    limit = max(1.5 * ref_ate, ref_ate + 0.005)
+    if not np.isfinite(ate) or ate > limit:
+        raise PhaseError(f"{label}: ATE {ate:.5f} m above {limit:.5f} m")
+    return (f"states and keyframes {kf_fid.tolist()} equal to JAX; frame "
+            f"poses within {worst_r:.5f} deg / {worst_t * 100:.5f} cm, "
+            f"keyframe poses within {kf_r:.5f} deg / {kf_tr * 100:.5f} cm "
+            f"of JAX; {n_points} valid points (JAX {want_pts}); ATE "
+            f"{ate * 1000:.3f} mm (JAX {ref_ate * 1000:.3f} mm, limit "
+            f"{limit * 1000:.3f} mm)")
+
+
+def pipe_phase(cfg, ref, loc_imgs):
+    """Pipelined SLAM mode: bench.py's SLAM pass at depth 4 and at depth 0
+    on the same frames, held to the JAX runs; save, reload and localize;
+    the sync debug mode; the two-pass example. Returns the kernel launch
+    counts of the timed depth-4 pass."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.examples import mono_synthetic
+    from orb_slam2_aruco_tpu_torch.io import checkpoint
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+    from orb_slam2_aruco_tpu_torch.worldmap.state import state_to_numpy
+
+    if (str(ref["ref_pipe_cfg"]) != str(ref["ref_cfg"])
+            or cfg.tracking.pipeline_depth != PIPE_DEPTH):
+        raise PhaseError("ref_full's pipelined recording is not its own "
+                         f"depth-{PIPE_DEPTH} configuration")
+    frames = render(cfg, ref, "ref_map_params")
+    t_phase = time.perf_counter()
+    _, _, _, _, warm = bench_slam_pass(cfg, frames)          # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.SYNCS["count"] = 0
+    system, records, created, _, m4 = bench_slam_pass(cfg, frames)
+    counts = dict(kernels.launch_counts)
+    syncs = tracking.SYNCS["count"]
+    phase("pipe", f"kernel launches in the timed depth-{PIPE_DEPTH} pass: "
+          f"{counts}")
+    check_launches("pipe", counts)
+    check_frames_built("pipe", counts, len(frames))
+    if created != ref["ref_pipe_inserts"].tolist():
+        raise PhaseError(f"depth {PIPE_DEPTH}: keyframes created at frames "
+                         f"{created} vs JAX's "
+                         f"{ref['ref_pipe_inserts'].tolist()}")
+    summary = hold_slam_run(f"depth {PIPE_DEPTH}", system, records, ref,
+                            "ref_pipe_")
+    phase("pipe", f"depth {PIPE_DEPTH}, {len(frames)} frames: keyframes "
+          f"created at {created} (= JAX); {summary}; host syncs {syncs} = "
+          f"{syncs / len(frames):.2f} per frame; stats {system.stats}")
+
+    zcfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                    pipeline_depth=0))
+    system0, records0, _, per_call, m0 = bench_slam_pass(zcfg, frames)
+    got_ins = np.flatnonzero(per_call).tolist()
+    want_ins = np.flatnonzero(ref["ref_slam_kf_insert"]).tolist()
+    if got_ins != want_ins:
+        raise PhaseError(f"depth 0: inserts at {got_ins} vs the JAX run's "
+                         f"{want_ins}")
+    summary0 = hold_slam_run("depth 0", system0, records0, ref, "ref_slam_")
+    phase("pipe", f"depth 0, the same frames: inserts at {got_ins} (= JAX);"
+          f" {summary0}")
+    for label, m in ((f"depth {PIPE_DEPTH} (warm-up pass)", warm),
+                     (f"depth {PIPE_DEPTH}", m4), ("depth 0", m0)):
+        phase("pipe", f"bench SLAM pass, {label}: slam_fps "
+              f"{m['slam_fps']:.4f} over frames {m['drop']}-"
+              f"{len(frames) - 1} and the flush; p50 {m['p50_ms']:.3f} ms, "
+              f"p90 {m['p90_ms']:.3f} ms; flush {m['flush_ms']:.3f} ms")
+
+    # save, reload, localize
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "map.npz")
+        system.save_map(mpath)
+        loc = SlamSystem(cfg, device=DEVICE)
+        loc.load_map(mpath)
+        saved, loaded = state_to_numpy(system.map), state_to_numpy(loc.map)
+        differ = [f for f in saved if not np.array_equal(saved[f],
+                                                         loaded[f])]
+        ts64 = checkpoint.load_extras(mpath)["kf_ts64"]
+    if differ or not np.array_equal(ts64, system.kf_ts64):
+        raise PhaseError(f"the reloaded map differs in {differ}")
+    lposes = [loc.track_monocular(img, ts=100.0 + i / 30.0)
+              for i, img in enumerate(loc_imgs)]
+    lok = [p is not None for p in lposes]
+    if lok != ref["ref_ok"].tolist():
+        raise PhaseError(f"localization against the reloaded depth-"
+                         f"{PIPE_DEPTH} map: states {lok} vs JAX's "
+                         f"{ref['ref_ok'].tolist()}")
+    lr, lt = pose_errors(lposes, ref["ref_R"], ref["ref_t"])
+    if lr > SLAM_ROT_TOL_DEG or lt > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"localization against the reloaded map off JAX's:"
+                         f" {lr:.4f} deg, {lt * 100:.4f} cm")
+    phase("pipe", f"save_map -> load_map: every array equal; "
+          f"{len(loc_imgs)} frames localized against it: {sum(lok)} OK "
+          f"(= JAX); poses within {lr:.5f} deg / {lt * 100:.5f} cm of JAX's "
+          f"against its own depth-{PIPE_DEPTH} map")
+
+    # every synchronizing call of the pipelined run
+    dbg = SlamSystem(cfg, device=DEVICE)
+    sync_calls(lambda: None)          # the debug mode's own first report
+    where, per_frame = collections.Counter(), []
+    tracking.SYNCS["count"] = 0
+    for i, img in enumerate(frames):
+        got = sync_calls(lambda: dbg.track_monocular(img, ts=i / 30.0))
+        per_frame.append(sum(got.values()))
+        where.update(got)
+    got = sync_calls(dbg.flush)
+    where.update(got)
+    n_sync = sum(per_frame) + sum(got.values())
+    phase("pipe", f"sync debug mode, the {len(frames)} frames at depth "
+          f"{PIPE_DEPTH} and the flush: {n_sync} synchronizing calls; per "
+          f"frame {per_frame}, flush {sum(got.values())}; deliberate host "
+          f"reads (tracking.SYNCS) {tracking.SYNCS['count']}; by site: "
+          f"{sites(where)}")
+    if n_sync > MAX_PIPE_SYNCS:
+        raise PhaseError(f"{n_sync} synchronizing calls in the pipelined "
+                         f"run, above {MAX_PIPE_SYNCS}")
+
+    # the port's two-pass entry point
+    with tempfile.TemporaryDirectory() as tmp:
+        tum, mpath = os.path.join(tmp, "traj.tum"), os.path.join(tmp,
+                                                                 "map.npz")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mono_synthetic.main(["--frames", str(EXAMPLE_FRAMES),
+                                      "--two-pass", "--out", tum,
+                                      "--save-map", mpath])
+        dt = time.perf_counter() - t0
+        lines = [ln.split("\r")[-1] for ln in out.getvalue().splitlines()]
+        if (rc != 0 or not os.path.getsize(tum) or not any(
+                ln.startswith("ATE RMSE vs ground truth:") for ln in lines)):
+            raise PhaseError(f"the example exited {rc}: {lines[-6:]}")
+        n_kf = int(checkpoint.load_map(mpath, DEVICE).kf_valid.sum())
+    phase("pipe", f"example mono_synthetic --frames {EXAMPLE_FRAMES} "
+          f"--two-pass --save-map: exit 0 in {dt:.1f} s, map with {n_kf} "
+          f"keyframes; " + " | ".join(ln for ln in lines if ln.startswith((
+              "median", "keyframes", "second pass", "trajectory", "ATE")))
+          + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def loop_reference():
@@ -1386,6 +1632,7 @@ def main() -> int:
                    "quads": quads_phase(cfg, ref, imgs),
                    "stream": stream_phase(path, cfg, ref, imgs),
                    "slam": slam_phase(cfg, ref, imgs),
+                   "pipe": pipe_phase(cfg, ref, imgs),
                    "loop": loop_phase()}
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)

@@ -12,6 +12,7 @@ localization slice runs (reference Tracking::Track, src/Tracking.cc:192-492):
   * Relocalization (Tracking.cc:1741-1914)      -> reloc_candidates,
                                                    reloc_pnp
   * the whole OK-state cascade                  -> track_full
+  * make_frame + the cascade (pipelined mode)   -> track_full_img
   * a chunk of localization frames              -> track_batch
 
 Every function runs eagerly on the state's device with fixed shapes. The
@@ -67,6 +68,29 @@ def host_read(x):
     counted in SYNCS."""
     SYNCS["count"] += 1
     return x.detach().cpu().numpy()
+
+
+class HostCopy:
+    """A device tensor's values for the host, read later: with `defer` the
+    copy into pinned host memory is queued now without waiting, and
+    `read()` waits for that copy alone (an event wait), not for work queued
+    after it; without `defer` (or for a CPU tensor) `read()` is host_read.
+    Counted in SYNCS either way."""
+
+    def __init__(self, x, defer: bool = True):
+        self._x, self._done = x.detach(), None
+        if defer and x.device.type == "cuda":
+            self._x = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self._x.copy_(x, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+
+    def read(self):
+        if self._done is None:
+            return host_read(self._x)
+        SYNCS["count"] += 1
+        self._done.synchronize()
+        return self._x.numpy()
 
 
 class TrackResult(NamedTuple):
@@ -500,6 +524,18 @@ def track_full(state: MapState, frame: Frame, R_pred, t_pred, R_last, t_last,
         last_obs, last_valid, last_octave, last_angle, ref_kf, cam, cfg)
     return _cascade_refine(state, frame, tr, slots, old, ok_a, need_ref,
                            ref_kf, cam, cfg)
+
+
+def track_full_img(state: MapState, img, R_pred, t_pred, R_last, t_last,
+                   last_uv, last_desc, last_obs, last_valid, last_octave,
+                   last_angle, ref_kf, cam: Camera, cfg: SlamConfig):
+    """make_frame of the raw frame img [H, W], then track_full: (frame,
+    FullTrackResult). The JAX package fuses the two into one program; here
+    they are queued one after the other."""
+    frame = make_frame(img, cam, cfg)
+    return frame, track_full(state, frame, R_pred, t_pred, R_last, t_last,
+                             last_uv, last_desc, last_obs, last_valid,
+                             last_octave, last_angle, ref_kf, cam, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -399,3 +399,92 @@ def test_pnp_draws_and_ransac_on_the_card(cuda_device):
         assert os.path.basename(f) == "pnp.py", where
         code = linecache.getline(f, line)
         assert "linalg.svd" in code or "linalg.eigh" in code, (line, code)
+
+
+def _pipe_small(device):
+    """(depth-2 SlamConfig, the shifted scene's uint8 frames, ref_pipe_*
+    arrays without the prefix) of ref_small's pipelined recording, without
+    jax (tests/test_torch_slice.py --pipe)."""
+    import json
+    import os
+
+    import chip_smoke
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "orb_slam2_aruco_tpu_torch", "data",
+        "ref_small.npz")
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files if k.startswith("ref_")}
+    cfg = SlamConfig.from_dict(json.loads(str(ref["ref_pipe_cfg"])))
+    imgs = chip_smoke.render(cfg, ref, "ref_pipe_params")
+    return cfg, imgs, {k[len("ref_pipe_"):]: v for k, v in ref.items()
+                       if k.startswith("ref_pipe_")}
+
+
+@pytest.mark.cuda
+def test_pipelined_slam_on_the_card_matches_jax(cuda_device):
+    """SLAM mode at pipeline_depth 2 on the card over the small shifted
+    scene: per-frame states, the frames that created keyframes, and poses
+    of the trajectory records within 0.5 deg / 2 cm of the JAX run."""
+    from unittest import mock
+
+    import chip_smoke
+    from orb_slam2_aruco_tpu_torch.pipeline import mapping
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    cfg, imgs, ref = _pipe_small(cuda_device)
+    assert cfg.tracking.pipeline_depth == 2
+    created = []
+    real = mapping.create_keyframe
+
+    def create(*a, **kw):
+        created.append(int(a[6]))
+        return real(*a, **kw)
+
+    system = SlamSystem(cfg, device=cuda_device)
+    with mock.patch.object(mapping, "create_keyframe", create):
+        for j, img in enumerate(imgs):
+            system.track_monocular(img, ts=j / 30.0)
+        system.flush()
+    recs = system.get_trajectory()
+    assert [r.frame_id for r in recs] == ref["fid"].tolist()
+    assert [r.state.value for r in recs] == ref["state"].tolist()
+    assert created == ref["inserts"].tolist()
+    poses = [(r.Rcw, r.tcw) if r.state.value == 2 else None for r in recs]
+    rot, trans = chip_smoke.pose_errors(poses, ref["R"], ref["t"])
+    assert rot <= chip_smoke.SLAM_ROT_TOL_DEG, rot
+    assert trans <= chip_smoke.SLAM_TRANS_TOL_M, trans
+
+
+@pytest.mark.cuda
+def test_pipelined_frame_dispatch_makes_no_hidden_synchronizing_call(
+        cuda_device):
+    """In the sync debug mode, a steady-state track_monocular call at depth
+    2 that reads a frame which is not a keyframe makes only the newest
+    frame's two cascade branch reads (host_sync) and the oldest frame's
+    control read (tracking.HostCopy, an event wait the debug mode may not
+    report): nothing else stalls the host."""
+    import linecache
+
+    import chip_smoke
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    cfg, imgs, ref = _pipe_small(cuda_device)
+    system = SlamSystem(cfg, device=cuda_device)
+    for j in range(7):              # initialized at frame 4; 5, 6 in flight
+        system.track_monocular(imgs[j], ts=j / 30.0)
+    assert [p[0] for p in system._pending] == [5, 6]
+    for j in (7, 8):               # these calls read frames 5 and 6
+        before = (system.stats["kf_inserted"], tracking.SYNCS["count"])
+        n, where = chip_smoke.port_sync_calls(
+            lambda: system.track_monocular(imgs[j], ts=j / 30.0))
+        assert system.stats["kf_inserted"] == before[0]
+        assert not system._map_phase
+        assert tracking.SYNCS["count"] - before[1] == 3
+        assert 2 <= n <= 3, where
+        for (f, line), _ in where.items():
+            code = linecache.getline(f, line)
+            assert os.path.basename(f) == "tracking.py", where
+            assert "bool(x)" in code or "synchronize()" in code, code

@@ -34,13 +34,19 @@ and the global BA drained, then black, noise, BoW-PnP and marker
 relocalization frames; ref_small also holds the system's state before the
 loop step and after the drain (`ref_loop_snap_*`).
 
+`add_pipe_reference` adds, to both files, the JAX SlamSystem in pipelined
+SLAM mode (`ref_pipe_*`): ref_full's own depth-4 map build (bench.py's
+SLAM pass; the map it leaves is the file's map), and on ref_small depth 2
+over the shifted scene plus a run that loses tracking and rewinds.
+
 Each file is a valid map checkpoint (the JAX and the port's load_map read
 it) with the reference arrays under `ref_*` keys. Regenerate everything
-with `--regen`, or only the serving, SLAM or loop keys with `--serving`,
-`--slam` or `--loop` (the existing keys stay byte-equal):
+with `--regen`, or only the serving, SLAM, loop or pipelined keys with
+`--serving`, `--slam`, `--loop` or `--pipe` (the existing keys stay
+byte-equal):
 
-    python tests/test_torch_slice.py --regen|--serving|--slam|--loop \
-        [small|full]
+    python tests/test_torch_slice.py \
+        --regen|--serving|--slam|--loop|--pipe [small|full]
 """
 
 from __future__ import annotations
@@ -917,11 +923,186 @@ def add_loop_reference(which=("small", "full"), out_dir=DATA_DIR):
               f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# pipelined SLAM mode (ref_pipe_* keys)
+# ---------------------------------------------------------------------------
+
+# pipeline depth of each file's pipelined run: ref_full's own configuration
+# (bench.py's SLAM pass), and 2 on the small setup's shifted scene
+PIPE_DEPTH = {"small": 2, "full": 4}
+# the small rewind run (tests/test_stream.py::
+# test_pipelined_lost_rewind_and_recovery): shifted frames 0-7, three black
+# frames, shifted frames 8-11; -1 = black
+PIPE_REWIND_ORDER = list(range(8)) + [-1, -1, -1] + list(range(8, 12))
+
+
+def pipe_cfg(cfg, depth, **tracking):
+    """`cfg` at tracking.pipeline_depth `depth` (either package's
+    SlamConfig)."""
+    return cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, pipeline_depth=depth, **tracking))
+
+
+def pipe_params(name):
+    """Render parameters of a file's pipelined run: the map frames of
+    ref_full, the shifted scene of ref_small."""
+    return SETUPS[name]()[2] if name == "full" else SMALL_SHIFTED_PARAMS
+
+
+def pipe_scene(name, cfg, syn):
+    """(frames, ground truth per frame) of a file's pipelined run; `syn` is
+    either package's io.synthetic."""
+    return render_frames(syn, SETUPS[name]()[1], cfg.camera,
+                         pipe_params(name), cfg.aruco.dictionary)
+
+
+def rewind_frames(imgs, gt):
+    """(frames, ground truth or None) of PIPE_REWIND_ORDER."""
+    black = np.zeros_like(imgs[0])
+    return ([black if k < 0 else imgs[k] for k in PIPE_REWIND_ORDER],
+            [None if k < 0 else gt[k] for k in PIPE_REWIND_ORDER])
+
+
+def frame_ts(j):
+    """Timestamp of a pipelined run's j-th frame."""
+    return j / 30.0
+
+
+def trajectory_ate(fids, states, Rs, ts, gt):
+    """ATE (SE3-aligned) of the OK records against their frames' ground
+    truth, by the port's io.trajectory."""
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+
+    ok = [i for i, s in enumerate(states) if s == 2 and gt[fids[i]]
+          is not None]
+    est = trajectory.camera_centers([Rs[i] for i in ok], [ts[i] for i in ok])
+    ref = trajectory.camera_centers([gt[fids[i]][0] for i in ok],
+                                    [gt[fids[i]][1] for i in ok])
+    return trajectory.ate_rmse(est, ref, align=True, with_scale=False)
+
+
+def pipe_run(system, mapping, imgs, gt):
+    """A fresh SlamSystem of either package (`mapping` is its
+    pipeline.mapping module) over `imgs` through track_monocular (frame j
+    at ts frame_ts(j)), then flush(): the ref_pipe_* arrays without the
+    prefix — the trajectory records (fid, state, R, t), the frame ids of
+    every keyframe created in creation order (inserts), the frames
+    relocalized (reloc_fid), the keyframes after the flush, stats, valid
+    points and the ATE over the OK records."""
+    from unittest import mock
+
+    inserts, relocs = [], []
+    cls = type(system)
+    real_create, real_reloc = mapping.create_keyframe, cls._relocalize
+
+    def create(*a, **kw):
+        inserts.append(int(a[6]))
+        return real_create(*a, **kw)
+
+    def relocalize(self, frame, fid, ts):
+        before = self.stats["reloc"]
+        out = real_reloc(self, frame, fid, ts)
+        if self.stats["reloc"] > before:
+            relocs.append(fid)
+        return out
+
+    with mock.patch.object(mapping, "create_keyframe", create), \
+            mock.patch.object(cls, "_relocalize", relocalize):
+        for j, img in enumerate(imgs):
+            system.track_monocular(img, ts=frame_ts(j))
+        system.flush()
+        recs = system.get_trajectory()
+        kf_fid, _, kf_R, kf_t = system.keyframe_trajectory()
+    out = dict(
+        fid=np.asarray([r.frame_id for r in recs], np.int32),
+        state=np.asarray([r.state.value for r in recs], np.int32),
+        R=np.stack([np.asarray(r.Rcw, np.float32) for r in recs]),
+        t=np.stack([np.asarray(r.tcw, np.float32) for r in recs]),
+        inserts=np.asarray(inserts, np.int32),
+        reloc_fid=np.asarray(relocs, np.int32),
+        kf_fid=np.asarray(kf_fid, np.int32),
+        kf_R=np.asarray(kf_R, np.float32), kf_t=np.asarray(kf_t, np.float32),
+        stats=np.asarray(json.dumps({k: int(v) for k, v in
+                                     system.stats.items()
+                                     if not k.startswith("_")})),
+        n_valid=np.asarray(int(system.map.num_points()), np.int32))
+    out["ate"] = np.asarray(trajectory_ate(
+        out["fid"].tolist(), out["state"].tolist(), out["R"], out["t"], gt),
+        np.float64)
+    return out
+
+
+def add_pipe_reference(which=("small", "full"), out_dir=DATA_DIR):
+    """Record, into the existing ref_<which>.npz, the JAX SlamSystem in
+    pipelined SLAM mode (`pipe_run`; ref_pipe_* keys, the other keys
+    stay byte-equal). ref_full: depth 4 over the map frames with the file's
+    own ref_cfg; the map the run leaves must equal the map arrays already in
+    the file (they were built the same way). ref_small: depth 2 over the
+    shifted scene (`SMALL_SHIFTED_PARAMS`: the recorded small scene is
+    chaotic in JAX itself, ROADMAP C2), and the rewind run
+    (PIPE_REWIND_ORDER, reset_if_lost_with_kfs_leq = 0) under
+    ref_pipe_rewind_*."""
+    import time
+
+    from orb_slam2_aruco_tpu.io import synthetic as jsyn
+    from orb_slam2_aruco_tpu.pipeline import mapping
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem
+
+    for name in which:
+        t0 = time.perf_counter()
+        path = os.path.join(out_dir, f"ref_{name}.npz")
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files
+                      if not k.startswith("ref_pipe_")}
+        base, _, _, _ = SETUPS[name]()
+        cfg = pipe_cfg(base, PIPE_DEPTH[name])
+        imgs, gt = pipe_scene(name, cfg, jsyn)
+        slam = SlamSystem(cfg)
+        run = pipe_run(slam, mapping, imgs, gt)
+        arrays.update({f"ref_pipe_{k}": v for k, v in run.items()})
+        arrays["ref_pipe_cfg"] = np.asarray(json.dumps(
+            dataclasses.asdict(cfg)))
+        arrays["ref_pipe_params"] = np.asarray(pipe_params(name),
+                                               np.float64)
+        if name == "full":
+            if arrays["ref_cfg"] != arrays["ref_pipe_cfg"]:
+                raise RuntimeError("ref_full's ref_cfg is not depth 4")
+            with tempfile.TemporaryDirectory() as tmp:
+                mpath = os.path.join(tmp, "map.npz")
+                slam.save_map(mpath)
+                with np.load(mpath) as z:
+                    differ = [f for f in slam.map._fields
+                              if not np.array_equal(z[f], arrays[f])]
+            if differ:
+                raise RuntimeError(f"the depth-4 re-run's map differs from "
+                                   f"the file's in {differ}")
+        else:
+            rcfg = pipe_cfg(base, PIPE_DEPTH[name],
+                            reset_if_lost_with_kfs_leq=0)
+            rimgs, rgt = rewind_frames(imgs, gt)
+            rew = pipe_run(SlamSystem(rcfg), mapping, rimgs, rgt)
+            arrays.update({f"ref_pipe_rewind_{k}": v
+                           for k, v in rew.items()})
+            arrays["ref_pipe_rewind_order"] = np.asarray(PIPE_REWIND_ORDER,
+                                                         np.int32)
+            print(f"  rewind run: fids {rew['fid'].tolist()}, states "
+                  f"{rew['state'].tolist()}, relocalized "
+                  f"{rew['reloc_fid'].tolist()}, inserts "
+                  f"{rew['inserts'].tolist()}", flush=True)
+        np.savez_compressed(path, **arrays)
+        print(f"{path}: depth {PIPE_DEPTH[name]} states "
+              f"{run['state'].tolist()}, inserts {run['inserts'].tolist()}, "
+              f"keyframes {run['kf_fid'].tolist()}, points "
+              f"{int(run['n_valid'])}, ATE {float(run['ate']):.5f} m, stats "
+              f"{str(run['stats'])}, {time.perf_counter() - t0:.0f} s",
+              flush=True)
+
+
 if __name__ == "__main__":
-    modes = ("--regen", "--serving", "--slam", "--loop")
+    modes = ("--regen", "--serving", "--slam", "--loop", "--pipe")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
-                 "--regen|--serving|--slam|--loop [small|full]")
+                 "--regen|--serving|--slam|--loop|--pipe [small|full]")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
@@ -929,10 +1110,13 @@ if __name__ == "__main__":
         build_reference_data(picked)
         add_slam_reference(picked)
         add_loop_reference(picked)
+        add_pipe_reference(picked)
     elif "--serving" in sys.argv:
         add_serving_reference(picked)
     elif "--slam" in sys.argv:
         add_slam_reference(picked)
+    elif "--pipe" in sys.argv:
+        add_pipe_reference(picked)
     else:
         add_loop_reference(picked)
 
@@ -1045,8 +1229,25 @@ def test_full_reference_file_is_a_complete_recording():
         os.path.join(DATA_DIR, "ref_small.npz")) < 4 * 2**20
 
 
+def _digest(path, skip):
+    """(key count, sha256 over (name, dtype, shape, bytes)) of the keys of
+    the npz at `path` that start with none of the prefixes `skip`."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with np.load(path) as z:
+        keys = sorted(k for k in z.files if not k.startswith(skip))
+        for k in keys:
+            a = z[k]
+            for part in (k.encode(), str(a.dtype).encode(),
+                         str(a.shape).encode(), a.tobytes()):
+                h.update(part)
+    return len(keys), h.hexdigest()
+
+
 # sha256 over (name, dtype, shape, bytes) of every key a file held before
 # the loop recording (ref_loop_*) was added: --loop must leave them equal
+# (the pipelined recording, ref_pipe_*, came later)
 PRE_LOOP_DIGESTS = {
     "small": (269, "c77007293266d991db1b87592e69fb69"
                    "e536419b4d07a40f3ba59ef498acc4fe"),
@@ -1062,20 +1263,12 @@ def test_loop_recording_keeps_the_other_keys_byte_equal(name):
     BoW-PnP relocalization of a marker-free frame, and in ref_small the
     start-area frame's relocalization by marker (JAX's full-width run
     loses that frame after its loop: ROADMAP C2)."""
-    import hashlib
-
     path = os.path.join(DATA_DIR, f"ref_{name}.npz")
-    h = hashlib.sha256()
     with np.load(path) as z:
-        keys = sorted(k for k in z.files if not k.startswith("ref_loop_"))
-        for k in keys:
-            a = z[k]
-            for part in (k.encode(), str(a.dtype).encode(),
-                         str(a.shape).encode(), a.tobytes()):
-                h.update(part)
         loops = z["ref_loop_loops"]
         reloc = z["ref_loop_reloc_marker"]
-    assert (len(keys), h.hexdigest()) == PRE_LOOP_DIGESTS[name]
+    assert (_digest(path, ("ref_loop_", "ref_pipe_"))
+            == PRE_LOOP_DIGESTS[name])
     assert len(loops) >= 1 and loops[0, 3] == 1
     kinds = {"small": [0, 1], "full": [0]}[name]
     assert reloc[reloc >= 0].tolist() == kinds
@@ -1102,24 +1295,63 @@ def test_ate_matches_jax(with_scale):
     assert got > 0.005
 
 
-def test_pipelined_slam_mode_is_not_ported_yet():
-    """SLAM mode runs at tracking.pipeline_depth 0 (the default); a deeper
-    pipeline raises, naming its ROADMAP item, instead of running depth 0
-    silently. Localization against a loaded map ignores the depth."""
+# the same for every key before the pipelined recording (ref_pipe_*)
+PRE_PIPE_DIGESTS = {
+    "small": (409, "047e32b9782246ac5d765b4ddd8538f7"
+                   "c638672333fd39000ad700c76d0e7449"),
+    "full": (108, "d8467fd75b932ae1c8f507dc66b1998d"
+                  "9c6129837890707fd1e9477432963d68"),
+}
+
+
+@pytest.mark.parametrize("name", ["small", "full"])
+def test_pipe_recording_keeps_the_other_keys_byte_equal(name):
+    """`--pipe` adds the ref_pipe_* keys and leaves every other key of the
+    file byte-equal (tests/test_torch_pipe.py holds the recordings)."""
+    path = os.path.join(DATA_DIR, f"ref_{name}.npz")
+    assert _digest(path, ("ref_pipe_",)) == PRE_PIPE_DIGESTS[name]
+    with np.load(path) as z:
+        cfg = json.loads(str(z["ref_pipe_cfg"]))
+    assert cfg["tracking"]["pipeline_depth"] == PIPE_DEPTH[name]
+
+
+def test_pipelined_slam_mode_tracks_defers_and_localization_ignores_it():
+    """SLAM mode at tracking.pipeline_depth 4 on the CPU: once initialized,
+    track_monocular returns device tensors and keeps the frames in flight
+    (`_pending`) with their control vectors unread; flush() reads them all
+    and gives one record per frame. Localization against a loaded map
+    ignores the depth: it tracks frame by frame."""
     from orb_slam2_aruco_tpu_torch.config import SlamConfig
-    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+    from orb_slam2_aruco_tpu_torch.pipeline.system import (
+        SlamSystem,
+        TrackingState,
+    )
 
     assert SlamConfig().tracking.pipeline_depth == 0
     path, ref = _load_ref("small")
-    cfg = SlamConfig.from_dict(json.loads(str(ref["ref_cfg"])))
-    deep = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
-                                                    pipeline_depth=4))
-    blank = np.zeros((cfg.camera.height, cfg.camera.width), np.uint8)
-    system = SlamSystem(deep, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        system.track_monocular(blank, ts=0.0)
+    cfg = pipe_cfg(SlamConfig.from_dict(json.loads(str(ref["ref_cfg"]))), 4)
+    imgs, _ = pipe_scene("small", cfg, synthetic)
+    system = SlamSystem(cfg, device="cpu")
+    n = 8
+    for j, img in enumerate(imgs[:n]):
+        pose = system.track_monocular(img, ts=j / 30.0)
+    assert system.state is TrackingState.OK
+    assert isinstance(pose[0], torch.Tensor)
+    assert 1 <= len(system._pending) <= 4
+    assert len(system.trajectory) == n - len(system._pending)
+    system.flush()
+    assert not system._pending and not system._map_phase
+    assert [r.frame_id for r in system.get_trajectory()] == list(range(n))
+
     system.load_map(path)
-    assert system.track_monocular(blank, ts=0.0) is None
+    loc, _ = _port_frames(ref)[1:]
+    for i, img in enumerate(loc[:3]):
+        p = system.track_monocular(img, ts=100.0 + i / 30.0)
+        assert not system._pending
+        assert (p is not None) == bool(ref["ref_ok"][i])
+        if p is not None:
+            assert isinstance(p[0], np.ndarray)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
