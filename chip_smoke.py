@@ -108,13 +108,45 @@ capacity), in phases:
               ms per insert, per GBA slice and per loop correction, and the
               loop frame's ms; then the scene once more under the sync
               debug mode: at most MAX_LOOP_SYNCS calls, printed by site.
- 10. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+ 10. dist     the distributed global BA over device lists of the one card
+              (every entry cuda:0: the cost of sharding, not scaling): on
+              the problem of the first GBA slice of the loop phase's
+              untimed sync-counting run (the map right after the loop
+              correction, copied outside every timed span; its bucket of
+              64 camera slots and 4096 points: the CG branch; after the drain two
+              LM iterations reject every step, which would hold nothing),
+              distributed_ba_solve and bundle_adjust_distributed on 1, 2, 4
+              and 8 entries against ba_solve / bundle_adjust: ba_solve's
+              sharded path (shard_problem, the per-shard sums) on a 1-entry
+              mesh bit for bit (under deterministic algorithms), the others
+              within R 2e-4, t 2e-3 (JAX's own limits,
+              tests/test_parallel.py:18-27) and 98 % of the points within
+              5e-3 (JAX's map-level test, :93-98: two calls of the
+              single-device solve differ by more), edge_chi2 in the caller's
+              order; ms per solve and the host time of the edge partition.
+              Then the loop scene again through SlamSystem with
+              optim.distributed_gba over 4 entries: every GBA slice
+              distributed, held to the JAX run as the loop phase holds it.
+ 11. video    the real-footage CLI (examples/mono_video.py's `run`) over
+              the recorded ARUCO_MIP_25h7 fly-by (data/ref_video.npz: 18
+              frames at 480x360 as the JAX VideoSource decoded them from
+              their MJPG file): --two-pass --chunk 6 --features 700, the
+              camera from an ORB-SLAM yml the phase writes, the viewer on
+              an automatic port (one GET of the snapshot and the frame, a
+              cross-origin POST refused), save_map (reloaded equal) and the
+              map view PNG. Pass-1 states, keyframes and pass-2 tracked
+              frames equal to the JAX CLI's recorded run, pass-2 poses
+              within 0.5 deg / 2 cm, ATE at most max(1.5 x, +5 mm) of
+              JAX's and below 12 cm. Without cv2, VideoSource and
+              ImageFolderSource must raise its ImportError.
+ 12. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
 Launch counts are zeroed just before each of slice, quads, stream, slam,
-pipe (its timed depth-4 pass) and loop and read just after: each must have
-launched the kernels of its path (K1-K3 on slice, stream, slam, pipe and
-loop, K4 on quads), and K1, K2 and K3 once per frame built.
+pipe (its timed depth-4 pass), loop, dist (its system run) and video and
+read just after: each must have launched the kernels of its path (K1-K3
+on slice, stream, slam, pipe, loop, dist and video, K4 on quads), and K1,
+K2 and K3 once per frame built.
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -195,6 +227,18 @@ MAX_PIPE_SYNCS = 66
 # frames
 PIPE_DEPTH, PIPE_BATCH = 4, 4
 EXAMPLE_FRAMES = 40
+# the distributed global BA: mesh sizes (entries of the one card) and the
+# limits of the sharded solve against the single-device one, JAX's own:
+# R and t as tests/test_parallel.py:18-27 holds the solve, and, since the
+# loop scene's GBA problem has weakly constrained points that move by
+# centimetres when only the summation order changes (two calls of the
+# single-device solve on the card differ by 1.2-1.8 cm; PERF.md section
+# 2), the points as its map-level test (:93-98) holds them: a share
+# within the limit; the mesh of the system's run
+DIST_MESHES = (1, 2, 4, 8)
+DIST_ROT_TOL, DIST_TRANS_TOL, DIST_PTS_TOL = 2e-4, 2e-3, 5e-3
+DIST_PTS_SHARE = 0.98
+DIST_SYSTEM_MESH = 4
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -215,6 +259,8 @@ PATH_KERNELS = {
     "slam": ("fast", "patches", "cc_fused"),
     "pipe": ("fast", "patches", "cc_fused"),
     "loop": ("fast", "patches", "cc_fused"),
+    "dist": ("fast", "patches", "cc_fused"),
+    "video": ("fast", "patches", "cc_fused"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and float32
@@ -1372,12 +1418,13 @@ def loop_frames(ref, imgs):
     return steps
 
 
-def run_loop_scene(cfg, ref, steps, probe=None):
+def run_loop_scene(cfg, ref, steps, probe=None, mesh=None):
     """The SLAM system over the loop scene's steps with the drift injected
     after frame LOOP_INJECT and keyframe_trajectory() after the pan:
     (system, poses, states, inserts, (fids, R, t) after the drain, valid
-    points after the drain). probe(i, step_fn) runs each step (timing or
-    sync counting)."""
+    points after the drain)). probe(i, step_fn) runs each step (timing or
+    sync counting). mesh: the device list of the distributed global BA
+    (cfg.optim.distributed_gba)."""
     import numpy as np
     import torch
 
@@ -1386,6 +1433,7 @@ def run_loop_scene(cfg, ref, steps, probe=None):
     from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
 
     system = SlamSystem(cfg, device=DEVICE)
+    system._gba_mesh = mesh
     n = len(ref["params"])
     poses, states, inserts = [], [], []
     traj = None
@@ -1406,29 +1454,23 @@ def run_loop_scene(cfg, ref, steps, probe=None):
     return system, poses, np.asarray(states), np.asarray(inserts), traj
 
 
-def loop_phase():
-    """SLAM mode with loop closing and relocalization over the loop scene
-    against the JAX package's recorded run. Returns the kernel launch
-    counts of the timed run."""
-    import numpy as np
+@contextlib.contextmanager
+def loop_recorder():
+    """Record, while the loop scene runs: the loops (step, keyframe, loop
+    keyframe, by marker, s, R, t), the relocalizations' kind by step and
+    the time of each correction, GBA slice and insert. Yields the record;
+    rec["cur"][0] must hold the current step."""
     import torch
 
-    from orb_slam2_aruco_tpu_torch import kernels
-    from orb_slam2_aruco_tpu_torch.io import trajectory
     from orb_slam2_aruco_tpu_torch.pipeline import loop_closing, tracking
     from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
 
-    cfg, ref, imgs, gt = loop_reference()
-    steps = loop_frames(ref, imgs)
-    # the loops (step, keyframe, loop keyframe, by marker, Sim3) and the
-    # time of each correction, GBA slice and insert
-    loops, kind, cur = [], [], [0]
-    times = collections.defaultdict(list)
+    rec = {"loops": [], "kind": [], "cur": [0], "reloc_kind": {},
+           "times": collections.defaultdict(list)}
     real = {n: getattr(loop_closing, n) for n in
             ("correct_loop", "compute_sim3", "compute_sim3_classic")}
     real_sys = {n: getattr(SlamSystem, n) for n in
                 ("_gba_slice", "_insert_keyframe", "_relocalize")}
-    reloc_kind = {}
 
     def relocalize(self, frame, fid, ts):
         # by marker when the marker pose candidate holds (the JAX run's
@@ -1439,7 +1481,7 @@ def loop_phase():
         before = self.stats["reloc"]
         out = real_sys["_relocalize"](self, frame, fid, ts)
         if self.stats["reloc"] > before:
-            reloc_kind[cur[0]] = int(bool(ok))
+            rec["reloc_kind"][rec["cur"][0]] = int(bool(ok))
         return out
 
     def timed(key, fn):
@@ -1448,30 +1490,20 @@ def loop_phase():
             t = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            times[key].append(time.perf_counter() - t)
+            rec["times"][key].append(time.perf_counter() - t)
             return out
         return run
 
     def correct(state, k, kf_loop, s, R, t, *a, **kw):
-        loops.append((cur[0], k, kf_loop, kind[-1], float(s),
-                      R.cpu().numpy(), t.cpu().numpy()))
+        rec["loops"].append((rec["cur"][0], k, kf_loop, rec["kind"][-1],
+                             float(s), R.cpu().numpy(), t.cpu().numpy()))
         return real["correct_loop"](state, k, kf_loop, s, R, t, *a, **kw)
 
     def sim3(name, by_marker):
         def run(*a, **kw):
-            kind.append(by_marker)
+            rec["kind"].append(by_marker)
             return real[name](*a, **kw)
         return run
-
-    frame_s = []
-
-    def probe(i, step):
-        cur[0] = i
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t0)
 
     loop_closing.correct_loop = timed("correction", correct)
     loop_closing.compute_sim3 = sim3("compute_sim3", 1)
@@ -1481,23 +1513,49 @@ def loop_phase():
                                         real_sys["_insert_keyframe"])
     SlamSystem._relocalize = relocalize
     try:
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        tracking.SYNCS["count"] = 0
-        system, poses, states, inserts, traj = run_loop_scene(
-            cfg, ref, steps, probe)
-        counts = dict(kernels.launch_counts)
-        syncs = tracking.SYNCS["count"]
+        yield rec
     finally:
         for n, fn in real.items():
             setattr(loop_closing, n, fn)
         for n, fn in real_sys.items():
             setattr(SlamSystem, n, fn)
-    phase("loop", f"kernel launches in the loop scene: {counts}")
-    check_launches("loop", counts)
-    check_frames_built("loop", counts, len(steps))
 
-    n = len(imgs)
+
+@contextlib.contextmanager
+def gba_capture():
+    """Record what the first GBA slice starts from while the loop scene
+    runs: yields a list that then holds (a copy of the map, the last
+    keyframe slot, the bucket, the point offset). The copy is taken outside
+    every timed run."""
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    real = SlamSystem._gba_slice
+    got = []
+
+    def gba_slice(self):
+        if not got:
+            got.append((type(self.map)(*(t.clone() for t in self.map)),
+                        self.last_kf_slot, self._gba_shape,
+                        self._gba_pt_offset))
+        return real(self)
+
+    SlamSystem._gba_slice = gba_slice
+    try:
+        yield got
+    finally:
+        SlamSystem._gba_slice = real
+
+
+def hold_loop_run(ref, gt, steps, system, poses, states, inserts, traj,
+                  rec):
+    """Hold a run of the loop scene to the JAX package's recorded run (the
+    loop phase's limits). Returns a summary line."""
+    import numpy as np
+
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+
+    loops, reloc_kind = rec["loops"], rec["reloc_kind"]
+    n = len(ref["params"])
     last = len(steps) - 1
     want_states = ref["state"].tolist()
     if states[:last].tolist() != want_states[:last]:
@@ -1569,20 +1627,60 @@ def loop_phase():
         raise PhaseError(f"BoW-PnP poses off the JAX run: {rl_r:.4f} deg, "
                          f"{rl_t * 100:.4f} cm")
     gba_cams = sorted(set(ref["gba_cams"].tolist()) - {0})
-    loop_step = got_loops[0][0]
+    return (f"{len(steps)} steps ({n} pan frames, extra "
+            f"{ref['extra'].tolist()}): states, inserts ({len(got_ins)}), "
+            f"keyframes ({len(fids)}) and loops {got_loops} equal to JAX "
+            f"(post-loop GBA over {gba_cams} camera slots: CG beyond 32); "
+            f"Sim3s within {sim3_r:.5f} deg / {sim3_t * 100:.5f} cm; "
+            f"keyframe poses after the drain within {kf_r:.5f} deg / "
+            f"{kf_t * 100:.5f} cm; {n_points} valid points (JAX "
+            f"{want_pts}); seam {seam * 1000:.3f} mm (JAX "
+            f"{ref_seam * 1000:.3f} mm); BoW-PnP relocalization at steps "
+            f"{bow} within {rl_r:.5f} deg / {rl_t * 100:.5f} cm of JAX's; "
+            f"the start-area frame (step {last}) relocalized by marker "
+            f"(JAX's recorded run: lost)")
+
+
+def loop_phase():
+    """SLAM mode with loop closing and relocalization over the loop scene
+    against the JAX package's recorded run. Returns the kernel launch
+    counts of the timed run and what the first GBA slice of the untimed
+    sync-counting run started from (gba_capture)."""
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+
+    cfg, ref, imgs, gt = loop_reference()
+    steps = loop_frames(ref, imgs)
+    frame_s = []
+    with loop_recorder() as rec:
+        def probe(i, step):
+            rec["cur"][0] = i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tracking.SYNCS["count"] = 0
+        system, poses, states, inserts, traj = run_loop_scene(
+            cfg, ref, steps, probe)
+        counts = dict(kernels.launch_counts)
+        syncs = tracking.SYNCS["count"]
+    phase("loop", f"kernel launches in the loop scene: {counts}")
+    check_launches("loop", counts)
+    check_frames_built("loop", counts, len(steps))
+    phase("loop", hold_loop_run(ref, gt, steps, system, poses, states,
+                                inserts, traj, rec))
+
+    n = len(imgs)
+    times = rec["times"]
+    loop_step = rec["loops"][0][0]
     tracked = [frame_s[i] for i in range(n) if states[i] == 2
                and i != loop_step]
-    phase("loop", f"{len(steps)} steps ({n} pan frames, extra "
-          f"{ref['extra'].tolist()}): states, inserts ({len(got_ins)}), "
-          f"keyframes ({len(fids)}) and loops {got_loops} equal to JAX "
-          f"(post-loop GBA over {gba_cams} camera slots: CG beyond 32); "
-          f"Sim3s within {sim3_r:.5f} deg / {sim3_t * 100:.5f} cm; keyframe "
-          f"poses after the drain within {kf_r:.5f} deg / {kf_t * 100:.5f} "
-          f"cm; {n_points} valid points (JAX {want_pts}); seam "
-          f"{seam * 1000:.3f} mm (JAX {ref_seam * 1000:.3f} mm); "
-          f"BoW-PnP relocalization at steps {bow} within {rl_r:.5f} deg / "
-          f"{rl_t * 100:.5f} cm of JAX's; the start-area frame (step "
-          f"{last}) relocalized by marker (JAX's recorded run: lost)")
     med = statistics.median
     phase("loop", f"{len(tracked) / sum(tracked):.2f} fps over the "
           f"{len(tracked)} tracked pan frames but the loop frame (median "
@@ -1603,7 +1701,10 @@ def loop_phase():
         per_step.append(sum(got.values()))
         where.update(got)
 
-    _, _, states2, _, _ = run_loop_scene(cfg, ref, steps, count)
+    with gba_capture() as gba_input:
+        states2 = run_loop_scene(cfg, ref, steps, count)[2]
+    if not gba_input:
+        raise PhaseError("the loop scene ran no GBA slice")
     n_sync = sum(per_step)
     phase("loop", f"sync debug mode, the {len(steps)} steps again: {n_sync} "
           f"synchronizing calls; per step {per_step}; states "
@@ -1612,6 +1713,356 @@ def loop_phase():
     if n_sync > MAX_LOOP_SYNCS:
         raise PhaseError(f"{n_sync} synchronizing calls in the loop scene, "
                          f"above {MAX_LOOP_SYNCS}")
+    return counts, gba_input[0]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (index_add_ sums in a fixed order on
+    the card), warnings only where an op has no deterministic form."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def median_ms(fn, reps=3):
+    """Median wall milliseconds of fn(), synchronized around each call."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dist_phase(gba_input):
+    """The distributed global BA over device lists of one card (every entry
+    cuda:0: the cost of sharding, not scaling): distributed_ba_solve and
+    bundle_adjust_distributed on the problem of the loop scene's first GBA
+    slice (gba_input: right after the loop correction; its bucket takes
+    the CG branch) against the single-device solve, then the loop scene through
+    SlamSystem with optim.distributed_gba over a DIST_SYSTEM_MESH-entry
+    list, held to the JAX run as the loop phase holds it. Returns the
+    kernel launch counts of that run."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.geometry.camera import camera_from_config
+    from orb_slam2_aruco_tpu_torch.optim import ba
+    from orb_slam2_aruco_tpu_torch.parallel import dist_ba
+    from orb_slam2_aruco_tpu_torch.pipeline import mapping
+
+    cfg, ref, imgs, gt = loop_reference()
+    state, center, (cams, pts), offset = gba_input
+    cam = camera_from_config(cfg.camera, DEVICE)
+    kw = dict(iters=cfg.optim.gba_slice_iters,
+              huber_delta=cfg.optim.huber_delta,
+              lam0=cfg.optim.lm_lambda_init)
+    bkw = dict(max_cams=cams, max_pts=pts, iters=kw["iters"],
+               pt_offset=offset)
+    prob = mapping.build_ba_problem(state, center, cfg, max_cams=cams,
+                                    max_pts=pts, window_all=True,
+                                    pt_offset=offset)[0]
+    if prob.Rcw.shape[0] <= ba.DENSE_MAX_CAMS:
+        raise PhaseError(f"the GBA bucket ({cams} cameras) does not take the "
+                         f"CG branch")
+    n_edges = int(prob.e_mask.sum())
+    chi2_0 = float(ba._total_chi2(prob, cam)[0])
+    single = ba.ba_solve(prob, cam, **kw)
+    moved = float((single.points - prob.points).abs().max())
+    if not (float(single.chi2) < chi2_0 and moved > 10 * DIST_PTS_TOL):
+        raise PhaseError(f"the GBA problem does not move (chi2 {chi2_0:.6g} "
+                         f"-> {float(single.chi2):.6g}, points by "
+                         f"{moved:.2e}): comparing solves would hold nothing")
+    def worst(a, b):
+        return float((a - b).abs().max())
+
+    again = ba.ba_solve(prob, cam, **kw)
+    repeat = all(torch.equal(a, b) for a, b in zip(single, again))
+    # the sharded code (shard_problem, the per-shard sums) on one shard:
+    # ba_solve's mesh argument, not distributed_ba_solve, which hands a
+    # 1-entry mesh to ba_solve as it is
+    with deterministic():
+        det = ba.ba_solve(prob, cam, **kw)
+        one = ba.ba_solve(prob, cam, mesh=dist_ba.make_mesh(devices=[DEVICE]),
+                          **kw)
+    differ = [f for f, a, b in zip(ba.BAResult._fields, one, det)
+              if not torch.equal(a, b)]
+    if differ:
+        raise PhaseError(f"ba_solve on a 1-entry mesh differs from ba_solve "
+                         f"in {differ} (deterministic algorithms)")
+    st_single, _ = mapping.bundle_adjust(state, center, cam, cfg,
+                                         window_all=True, **bkw)
+    # what the summation order alone moves: a second call of the same
+    # single-device solve (index_add_'s atomic order) and the solve with
+    # its edges in the 8-entry partition's order
+    perm = dist_ba.partition_edges_by_point(prob, 8)[0]
+    reordered = ba.ba_solve(perm, cam, **kw)
+    witness = (f"the single-device solve moves its points by "
+               f"{worst(again.points, single.points):.2e} when called again "
+               f"and by {worst(reordered.points, single.points):.2e} with "
+               f"its edges reordered (R / t "
+               f"{worst(reordered.Rcw, single.Rcw):.2e} / "
+               f"{worst(reordered.tcw, single.tcw):.2e})")
+
+    def held(label, R, t, P, R0, t0, P0):
+        """R and t within JAX's limits; the points as JAX's own map-level
+        test holds them (DIST_PTS_SHARE within DIST_PTS_TOL)."""
+        dp = (P - P0).abs().max(dim=-1).values
+        err = (worst(R, R0), worst(t, t0), float(dp.max()),
+               float((dp <= DIST_PTS_TOL).float().mean()))
+        if not (err[0] <= DIST_ROT_TOL and err[1] <= DIST_TRANS_TOL
+                and err[3] >= DIST_PTS_SHARE):
+            raise PhaseError(f"{label} off the single-device result: R "
+                             f"{err[0]:.2e}, t {err[1]:.2e}, points worst "
+                             f"{err[2]:.2e}, {err[3]:.2%} within "
+                             f"{DIST_PTS_TOL}; {witness}")
+        return (f"R / t {err[0]:.2e} / {err[1]:.2e}, points worst "
+                f"{err[2]:.2e} ({err[3]:.2%} within {DIST_PTS_TOL})")
+
+    rows = []
+    for n in DIST_MESHES:
+        mesh = dist_ba.make_mesh(devices=[DEVICE] * n)
+        out = dist_ba.distributed_ba_solve(prob, cam, mesh, **kw)
+        solve_msg = held(f"distributed_ba_solve on {n} entries", out.Rcw,
+                         out.tcw, out.points, single.Rcw, single.tcw,
+                         single.points)
+        # edge_chi2 in the caller's order: the chi2 of each original edge
+        # at the returned state (float32 rounding of the recomputation:
+        # 1e-3 absolute and relative; an edge out of order is off by its
+        # whole chi2)
+        c_e = ba._total_chi2(prob._replace(
+            Rcw=out.Rcw, tcw=out.tcw, points=out.points, Rwm=out.Rwm,
+            twm=out.twm), cam)[1]
+        if out.edge_chi2.shape != c_e.shape:
+            raise PhaseError(f"{n} entries: edge_chi2 of shape "
+                             f"{tuple(out.edge_chi2.shape)}")
+        chi_err = (out.edge_chi2 - c_e).abs()
+        off = chi_err > 1e-3 + 1e-3 * c_e.abs()
+        if bool(off.any()):
+            raise PhaseError(
+                f"{n} entries: edge_chi2 is not in the caller's edge order: "
+                f"{int(off.sum())} of {c_e.shape[0]} edges off, worst "
+                f"{float(chi_err.max()):.3e}")
+        st, _ = mapping.bundle_adjust_distributed(state, center, cam, cfg,
+                                                  mesh, **bkw)
+        map_msg = held(f"bundle_adjust_distributed on {n} entries",
+                       st.kf_Rcw, st.kf_tcw, st.pt_xyz, st_single.kf_Rcw,
+                       st_single.kf_tcw, st_single.pt_xyz)
+        t0 = time.perf_counter()
+        dist_ba.partition_edges_by_point(prob, n)
+        part_ms = (time.perf_counter() - t0) * 1e3
+        ms = median_ms(lambda: dist_ba.distributed_ba_solve(
+            prob, cam, mesh, **kw), reps=5)
+        rows.append(f"{n}: {ms:.1f} ms per solve, partition "
+                    f"{part_ms:.1f} ms on the host; solve {solve_msg}; map "
+                    f"{map_msg}; edge_chi2 in the caller's order within "
+                    f"{float(chi_err.max()):.1e}")
+    single_ms = median_ms(lambda: ba.ba_solve(prob, cam, **kw), reps=5)
+    phase("dist", f"the loop scene's first GBA slice problem: "
+          f"{prob.Rcw.shape[0]} camera slots, {prob.points.shape[0]} "
+          f"points, {n_edges} live point edges of {prob.e_kf.shape[0]}, "
+          f"{kw['iters']} LM iterations (CG), chi2 {chi2_0:.6g} -> "
+          f"{float(single.chi2):.6g}, points moved up to {moved:.3f} m; "
+          f"ba_solve {single_ms:.1f} ms, "
+          f"two calls {'bit-equal' if repeat else 'NOT bit-equal'} "
+          f"(index_add_ order); ba_solve's sharded path on a 1-entry mesh "
+          f"bit-equal to ba_solve under deterministic algorithms; "
+          f"{witness}; per mesh of cuda:0 "
+          f"entries "
+          f"(one card repeated: the cost of sharding, not scaling): "
+          + "; ".join(rows))
+
+    dcfg = cfg.replace(optim=dataclasses.replace(cfg.optim,
+                                                 distributed_gba=True))
+    steps = loop_frames(ref, imgs)
+    with loop_recorder() as rec:
+        def probe(i, step):
+            rec["cur"][0] = i
+            step()
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        system, poses, states, inserts, traj = run_loop_scene(
+            dcfg, ref, steps, probe,
+            mesh=dist_ba.make_mesh(devices=[DEVICE] * DIST_SYSTEM_MESH))
+        counts = dict(kernels.launch_counts)
+    phase("dist", f"kernel launches in the loop scene with the distributed "
+          f"GBA: {counts}")
+    check_launches("dist", counts)
+    check_frames_built("dist", counts, len(steps))
+    n_slices = system.stats.get("gba_slices", 0)
+    if not n_slices or system.stats.get("gba_slices_distributed") != n_slices:
+        raise PhaseError(f"the distributed branch did not run every GBA "
+                         f"slice: stats {system.stats}")
+    phase("dist", f"SlamSystem with distributed_gba over {DIST_SYSTEM_MESH} "
+          f"entries of cuda:0: {n_slices} GBA slices, all distributed, "
+          f"{[round(v * 1000, 1) for v in rec['times']['gba']]} ms; "
+          + hold_loop_run(ref, gt, steps, system, poses, states, inserts,
+                          traj, rec))
+    return counts
+
+
+def video_phase():
+    """The real-footage entry point on the card: the port's mono_video CLI
+    path (`run`) over the recorded 25h7 fly-by (data/ref_video.npz, as the
+    JAX VideoSource decoded it) with the camera from an ORB-SLAM yml, two
+    passes, the viewer, save_map and the map view, held to the JAX CLI's
+    recorded run. Returns the kernel launch counts of the run."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.examples import mono_synthetic, mono_video
+    from orb_slam2_aruco_tpu_torch.io import checkpoint, ingest, trajectory
+    from orb_slam2_aruco_tpu_torch.viz import framedrawer
+
+    with np.load(os.path.join(HERE, PKG, "data", "ref_video.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    frames, K = ref["frames"], ref["K"]
+    n = len(frames)
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+        for src in (ingest.VideoSource("seq.avi", ingest.CameraConfig()),
+                    ingest.ImageFolderSource(HERE, ingest.CameraConfig())):
+            try:
+                list(src)
+            except ImportError as e:
+                if "needs opencv-python" not in str(e):
+                    raise
+            else:
+                raise PhaseError(f"{type(src).__name__} ran without cv2")
+    with tempfile.TemporaryDirectory() as tmp:
+        yml = os.path.join(tmp, "camera.yaml")
+        with open(yml, "w") as f:
+            fx, fy, cx, cy = (float(v) for v in (K[0, 0], K[1, 1], K[0, 2],
+                                                 K[1, 2]))
+            f.write(f"%YAML:1.0\nCamera.fx: {fx!r}\nCamera.fy: {fy!r}\n"
+                    f"Camera.cx: {cx!r}\nCamera.cy: {cy!r}\n"
+                    f"Camera.width: {frames.shape[2]}\n"
+                    f"Camera.height: {frames.shape[1]}\nCamera.fps: 30.0\n")
+        out_tum = os.path.join(tmp, "traj.tum")
+        args = mono_video.parse_args(
+            ["--video", os.path.join(tmp, "recorded.avi"), "--camera", yml,
+             "--out", out_tum, "--kf-out", os.path.join(tmp, "kf.tum"),
+             "--save-map", os.path.join(tmp, "map.npz"), "--viewer", "0",
+             "--device", DEVICE] + json.loads(str(ref["args"])))
+        camc = ingest.camera_from_slam_yaml(yml)
+        if mono_video.load_camera(args) != camc or (camc.fx, camc.cy) != (
+                K[0, 0], K[1, 2]):
+            raise PhaseError(f"camera file read as {camc}")
+        cfg = mono_video.make_config(camc, args)
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            out = mono_video.run(cfg, zip(frames, ref["ts"].tolist()), args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+        slam, viewer = out["system"], out["viewer"]
+        try:
+            base = f"http://127.0.0.1:{viewer.port}"
+            snap = json.loads(urllib.request.urlopen(base + "/state",
+                                                     timeout=10).read())
+            png = urllib.request.urlopen(base + "/frame.png",
+                                         timeout=10).read()
+            req = urllib.request.Request(
+                base + "/control", method="POST",
+                data=json.dumps({"cmd": "reset", "value": True}).encode(),
+                headers={"Origin": "http://elsewhere.example"})
+            try:
+                urllib.request.urlopen(req, timeout=10)
+                raise PhaseError("the viewer accepted a cross-origin POST")
+            except urllib.error.HTTPError as e:
+                if e.code != 403:
+                    raise PhaseError(f"cross-origin POST: HTTP {e.code}")
+            if viewer.poll_controls():
+                raise PhaseError("a refused POST reached the controls")
+        finally:
+            viewer.close()
+        if (not snap["map"]["kf_centers"] or not snap["map"]["points"]
+                or png[:4] != b"\x89PNG"):
+            raise PhaseError(f"viewer snapshot with "
+                             f"{len(snap['map']['kf_centers'])} keyframes, "
+                             f"{len(snap['map']['points'])} points, frame "
+                             f"{png[:8]!r}")
+        view = mono_synthetic.save_views(slam.map, tmp)
+        with open(view, "rb") as f:
+            if f.read() != framedrawer.encode_png(
+                    framedrawer.draw_map_topdown(slam.map)):
+                raise PhaseError("the saved map view is not the map's")
+        saved = checkpoint.load_map(os.path.join(tmp, "map.npz"), DEVICE)
+        differ = [f for f in slam.map._fields if not torch.equal(
+            getattr(saved, f), getattr(slam.map, f))]
+        if differ:
+            raise PhaseError(f"save_map -> load_map differs in {differ}")
+        n_tum = len(trajectory.load_tum(out_tum)[0])
+    phase("video", f"kernel launches in the CLI run: {counts}")
+    check_launches("video", counts)
+    check_frames_built("video", counts, 2 * n)
+
+    state = np.full(n, -1, np.int32)
+    for r in slam.get_trajectory():
+        if r.frame_id < n:
+            state[r.frame_id] = r.state.value
+    fids = slam.keyframe_trajectory()[0]
+    if (state.tolist() != ref["state"].tolist()
+            or slam.n_keyframes != int(ref["n_kf"])
+            or fids.tolist() != ref["kf_fid"].tolist()):
+        raise PhaseError(f"pass 1: states {state.tolist()}, keyframes "
+                         f"{fids.tolist()} vs the JAX CLI's "
+                         f"{ref['state'].tolist()}, {ref['kf_fid'].tolist()}")
+    ok = np.asarray([p is not None for p in out["pass2"]])
+    if ok.tolist() != ref["pass2_ok"].tolist() or n_tum != int(ok.sum()):
+        raise PhaseError(f"pass 2 tracked {ok.astype(int).tolist()} vs the "
+                         f"JAX CLI's {ref['pass2_ok'].astype(int).tolist()}")
+    r2, t2 = pose_errors(out["pass2"], ref["pass2_R"], ref["pass2_t"])
+    if r2 > SLAM_ROT_TOL_DEG or t2 > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"pass-2 poses off the JAX CLI's: {r2:.4f} deg, "
+                         f"{t2 * 100:.4f} cm")
+    R = np.stack([np.asarray(p[0]) for p in out["pass2"] if p is not None])
+    t = np.stack([np.asarray(p[1]) for p in out["pass2"] if p is not None])
+    ate = trajectory.ate_rmse(
+        trajectory.camera_centers(R, t),
+        trajectory.camera_centers(ref["gt_R"][ok], ref["gt_t"][ok]),
+        align=True, with_scale=False)
+    want = float(ref["ate"])
+    if not (ate <= max(1.5 * want, want + 0.005) and ate < 0.12):
+        raise PhaseError(f"pass-2 ATE {ate * 100:.3f} cm (JAX "
+                         f"{want * 100:.3f} cm; limit max(1.5 x, +5 mm), "
+                         f"< 12 cm)")
+    timers = [ln.strip() for ln in log.getvalue().replace("\r", "\n")
+              .splitlines() if "tracking time" in ln]
+    phase("video", f"cv2 {'importable' if has_cv2 else 'absent: VideoSource'
+          ' and ImageFolderSource raise its ImportError'}; mono_video.run "
+          f"over the recorded {n} frames ({frames.shape[2]}x"
+          f"{frames.shape[1]}, {' '.join(json.loads(str(ref['args'])))}, "
+          f"camera from an ORB-SLAM yml): pass-1 states and keyframes "
+          f"{fids.tolist()} equal to the JAX CLI's; pass 2 {int(ok.sum())}/"
+          f"{n} tracked (= JAX) within {r2:.5f} deg / {t2 * 100:.5f} cm; ATE "
+          f"{ate * 100:.3f} cm (JAX {want * 100:.3f} cm); viewer: snapshot "
+          f"({len(snap['map']['points'])} points) and frame served, the "
+          f"cross-origin POST refused; save_map reloads equal; map view "
+          f"PNG written; {wall:.1f} s; {' | '.join(timers)}")
     return counts
 
 
@@ -1632,8 +2083,10 @@ def main() -> int:
                    "quads": quads_phase(cfg, ref, imgs),
                    "stream": stream_phase(path, cfg, ref, imgs),
                    "slam": slam_phase(cfg, ref, imgs),
-                   "pipe": pipe_phase(cfg, ref, imgs),
-                   "loop": loop_phase()}
+                   "pipe": pipe_phase(cfg, ref, imgs)}
+        by_path["loop"], gba_input = loop_phase()
+        by_path["dist"] = dist_phase(gba_input)
+        by_path["video"] = video_phase()
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1

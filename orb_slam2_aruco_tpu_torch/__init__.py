@@ -5,12 +5,16 @@ Monocular ORB + ArUco SLAM engine for one NVIDIA H100. The JAX package
 function is tested against its JAX counterpart on the same inputs
 (tests/test_torch_*.py). This package imports torch and numpy only, never jax.
 
-Ported so far: SLAM mode from an empty map (`pipeline.system.SlamSystem`,
-synchronous or pipelined, with loop closing and relocalization),
-`save_map`, and localization against a saved map of either package —
-`SlamSystem.load_map`, then `track_monocular` frame by frame or the chunked
-serving form `track_monocular_batch` / `localize_stream`; the two-pass
-example is `python -m orb_slam2_aruco_tpu_torch.examples.mono_synthetic`. All
+It covers every module of the JAX package: SLAM mode from an empty map
+(`pipeline.system.SlamSystem`, synchronous or pipelined, with loop closing,
+relocalization and, over a device list, the distributed global BA of
+`parallel/dist_ba.py`), `save_map`, and localization against a saved map of
+either package — `SlamSystem.load_map`, then `track_monocular` frame by
+frame or the chunked serving form `track_monocular_batch` /
+`localize_stream`; the real-footage ingest (`io/ingest.py`), the viewers
+(`viz/`), and the entry points `python -m
+orb_slam2_aruco_tpu_torch.examples.mono_synthetic` (two-pass, synthetic)
+and `...examples.mono_video` (video files and image folders). All
 four Pallas kernels are hand-written CUDA kernels here (kernels/csrc): FAST
 score + NMS (ops/fast.py), patch extraction (ops/orb.py), the fused
 connected components + blob bounding boxes (ops/cc_fused.py) and the

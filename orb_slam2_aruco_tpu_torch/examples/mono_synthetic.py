@@ -6,25 +6,35 @@ SLAM over a rendered marker wall, print per-frame timing statistics
 (median / mean, as mono_marker.cc:279-287), optionally run a second
 localization-only pass (the ActivateLocalizationMode two-pass scheme,
 mono_cvcam.cc:152-176), save the trajectory in TUM format and the map as a
-checkpoint, and report the ATE against the ground truth.
+checkpoint, and report the ATE against the ground truth; `--save-views`
+writes the top-down map view as a PNG (viz/framedrawer.py).
 
     python -m orb_slam2_aruco_tpu_torch.examples.mono_synthetic \\
         --frames 40 --out traj.tum [--two-pass] [--save-map map.npz] \\
-        [--device cpu]
+        [--save-views DIR] [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import numpy as np
 
 
+def save_views(map_state, directory: str) -> str:
+    """The top-down map view (points, keyframes, markers) as
+    <directory>/map.png; returns its path."""
+    from orb_slam2_aruco_tpu_torch.viz import framedrawer
+
+    Path(directory).mkdir(parents=True, exist_ok=True)
+    path = str(Path(directory) / "map.png")
+    framedrawer.save_png(path, framedrawer.draw_map_topdown(map_state))
+    return path
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="The JAX example's --save-views (frame and map overlay PNGs) "
-               "is not ported: it needs the viewer, ROADMAP.md item 10.")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--out", type=str, default="trajectory.tum")
     ap.add_argument("--dict", type=str, default="ARUCO")
@@ -35,6 +45,8 @@ def main(argv=None):
     ap.add_argument("--two-pass", action="store_true",
                     help="second localization-only pass like mono_cvcam")
     ap.add_argument("--save-map", type=str, default="")
+    ap.add_argument("--save-views", type=str, default="",
+                    help="directory for the map view PNG")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (the card unless told otherwise)")
     ap.add_argument("--trace", type=str, default="",
@@ -124,6 +136,8 @@ def main(argv=None):
     if args.save_map:
         slam.save_map(args.save_map)
         print(f"map checkpoint -> {args.save_map}")
+    if args.save_views:
+        print(f"map view -> {save_views(slam.map, args.save_views)}")
     return 0
 
 

@@ -55,12 +55,26 @@ def undistort_normalized(cam: Camera, xd, iters: int = 8):
     return torch.stack([x, y], dim=-1)
 
 
-def project(cam: Camera, xyz_cam):
-    """Camera-frame points [..., 3] -> undistorted pixels [..., 2] (the
-    tracking works on undistorted keypoints)."""
+def distort_normalized(cam: Camera, xn):
+    """Apply radial-tangential distortion to normalized coords [..., 2]."""
+    k1, k2, p1, p2, k3 = (cam.dist[i] for i in range(5))
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
+def project(cam: Camera, xyz_cam, distort: bool = False):
+    """Camera-frame points [..., 3] -> pixels [..., 2], undistorted by
+    default (the tracking works on undistorted keypoints, like the
+    reference after Frame::UndistortKeyPoints)."""
     z = xyz_cam[..., 2]
     z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
     xn = xyz_cam[..., :2] / z_safe[..., None]
+    if distort:
+        xn = distort_normalized(cam, xn)
     return torch.stack([cam.fx * xn[..., 0] + cam.cx,
                         cam.fy * xn[..., 1] + cam.cy], dim=-1)
 

@@ -117,6 +117,13 @@ def se3_exp(xi):
     return R, (V @ v[..., None])[..., 0]
 
 
+def se3_log(R, t):
+    """Inverse of se3_exp -> [..., 6] (upsilon, omega)."""
+    w = so3_log(R)
+    v = (_so3_left_jacobian_inv(w) @ t[..., None])[..., 0]
+    return torch.cat([v, w], dim=-1)
+
+
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra,ta) * (Rb,tb): x -> Ra(Rb x + tb) + ta."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
@@ -130,6 +137,13 @@ def se3_inverse(R, t):
 def se3_apply(R, t, x):
     """[..., 3, 3], [..., 3], [..., 3] -> [..., 3]."""
     return (R @ x[..., None])[..., 0] + t
+
+
+def se3_matrix(R, t):
+    """(R, t) -> [..., 4, 4] homogeneous matrix."""
+    bot = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                       device=R.device).expand(R.shape[:-2] + (1, 4))
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bot], dim=-2)
 
 
 def rot_to_quat(R):

@@ -140,6 +140,64 @@ def _total_chi2(p: BAProblem, cam: Camera):
     return (torch.sum(c_e * valid_e) + torch.sum(c_m * valid_m)), c_e, c_m
 
 
+
+
+# ---------------------------------------------------------------------------
+# edge shards: the JAX solve's shard_map over a mesh axis, from one
+# controller. Every edge-level term is computed on its shard's device; the
+# shards' partial sums are added on the lead device in shard order (JAX's
+# psum); the replicated state lives on the lead device and is copied to the
+# others once per LM iteration. One shard is the single-device solve.
+# ---------------------------------------------------------------------------
+
+REPLICATED = ("Rcw", "tcw", "points", "Rwm", "twm", "marker_side",
+              "cam_free", "pt_free", "marker_free")
+POINT_EDGES = ("e_kf", "e_pt", "e_uv", "e_info", "e_mask")
+MARKER_EDGES = ("m_kf", "m_marker", "m_corner", "m_uv", "m_info", "m_mask")
+STATE = ("Rcw", "tcw", "points", "Rwm", "twm")
+
+
+def shard_problem(p: BAProblem, mesh) -> list:
+    """p's edge lists cut into len(mesh) equal contiguous shards (shard_map's
+    split of a sharded axis): shard i holds its edges and a copy of the
+    replicated fields on mesh[i]. The edge counts must divide by the mesh
+    size (parallel.dist_ba.pad_edges_to)."""
+    n = len(mesh)
+    E, F = p.e_kf.shape[0], p.m_kf.shape[0]
+    if E % n or F % n:
+        raise ValueError(f"{E} point edges and {F} marker edges do not "
+                         f"divide into {n} shards")
+    out = []
+    for i, dev in enumerate(mesh):
+        f = {k: getattr(p, k).to(dev) for k in REPLICATED}
+        f.update({k: getattr(p, k)[i * (E // n):(i + 1) * (E // n)].to(dev)
+                  for k in POINT_EDGES})
+        f.update({k: getattr(p, k)[i * (F // n):(i + 1) * (F // n)].to(dev)
+                  for k in MARKER_EDGES})
+        out.append(BAProblem(**f))
+    return out
+
+
+def _psum(parts):
+    """The shards' partial sums added on the lead device in shard order
+    (JAX's psum over the mesh axis); one shard's part is the sum."""
+    out = parts[0]
+    for x in parts[1:]:
+        out = out + x.to(out.device)
+    return out
+
+
+def _on(devs, x):
+    """Copies of tensor x on each shard's device (x itself on its own)."""
+    return [x.to(d) for d in devs]
+
+
+def to_device(x, dev):
+    """A BAProblem or Camera with its tensors on `dev`."""
+    return type(x)(*(f.to(dev) if isinstance(f, torch.Tensor) else f
+                     for f in x))
+
+
 def _seg_sum(ids, num_segments: int, vals):
     """out[s] = sum of vals[e] over ids[e] == s ([S, ...])."""
     out = vals.new_zeros((num_segments,) + vals.shape[1:])
@@ -156,17 +214,39 @@ def _grad(J, w, r):
     return -((J * w[:, None, None]).transpose(-1, -2) @ r[..., None])[..., 0]
 
 
-def _dense_solve(p: BAProblem, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm,
-                 Jc_m, Jm_m, w_m):
+def _mv(A, x):
+    return (A @ x[..., None])[..., 0]
+
+
+class _Terms(NamedTuple):
+    """One shard's edge-level terms at the current linearization point."""
+
+    p: BAProblem                # the shard, with its copy of the state
+    r_e: torch.Tensor
+    Jc_e: torch.Tensor
+    Jp_e: torch.Tensor
+    w_e: torch.Tensor
+    r_m: torch.Tensor
+    Jc_m: torch.Tensor
+    Jm_m: torch.Tensor
+    w_m: torch.Tensor
+    Wcp: torch.Tensor           # [E, 6, 3] camera-point coupling
+
+
+def _dense_solve(lead: BAProblem, shards, lam, Hcc, Hmm, Hpp_inv, bc_red,
+                 bm):
     """The reduced camera + marker system assembled densely and
     Cholesky-solved: (dxc [K, 6], dxm [M, 6])."""
     K, L, M = Hcc.shape[0], Hpp_inv.shape[0], Hmm.shape[0]
     D = 6 * (K + M)
     dev, f32 = Hcc.device, Hcc.dtype
     # S_cc = Hcc - sum_l W_kl Hpp_l^-1 W_k'l^T over [K, L] block matrices
-    kl = p.e_kf * L + p.e_pt
-    Wmat = _seg_sum(kl, K * L, Wcp).reshape(K, L, 6, 3)
-    Ymat = _seg_sum(kl, K * L, Wcp @ Hpp_inv[p.e_pt]).reshape(K, L, 6, 3)
+    inv = _on([t.p.e_pt.device for t in shards], Hpp_inv)
+    Wmat = _psum([_seg_sum(t.p.e_kf * L + t.p.e_pt, K * L, t.Wcp)
+                  for t in shards]).reshape(K, L, 6, 3)
+    Ymat = _psum([_seg_sum(t.p.e_kf * L + t.p.e_pt, K * L,
+                           t.Wcp @ hi[t.p.e_pt])
+                  for t, hi in zip(shards, inv)]).reshape(K, L, 6, 3)
     S_cc = -torch.einsum("alik,bljk->abij", Ymat, Wmat)           # [K,K,6,6]
     ar = torch.arange(K, device=dev)
     S_cc[ar, ar] += Hcc
@@ -176,16 +256,17 @@ def _dense_solve(p: BAProblem, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm,
     S[:K, :K] = S_cc
     am = torch.arange(K, K + M, device=dev)
     S[am, am] += Hmm
-    Hcm = _seg_sum(p.m_kf * M + p.m_marker, K * M,
-                   _quad(Jc_m, w_m, Jm_m)).reshape(K, M, 6, 6)
+    Hcm = _psum([_seg_sum(t.p.m_kf * M + t.p.m_marker, K * M,
+                          _quad(t.Jc_m, t.w_m, t.Jm_m))
+                 for t in shards]).reshape(K, M, 6, 6)
     S[:K, K:] += Hcm
     S[K:, :K] += Hcm.transpose(0, 1).transpose(-1, -2)
     b_all = torch.cat([bc_red, bm], dim=0)                        # [K+M, 6]
 
     Sd = S.permute(0, 2, 1, 3).reshape(D, D)
     diag = torch.clamp(torch.diagonal(Sd), min=1e-10)
-    free = torch.cat([p.cam_free.repeat_interleave(6),
-                      p.marker_free.repeat_interleave(6)])
+    free = torch.cat([lead.cam_free.repeat_interleave(6),
+                      lead.marker_free.repeat_interleave(6)])
     # fixed states: unit rows / columns and zero right-hand side -> dx = 0
     Sd = Sd * free[:, None] * free[None, :]
     Sd = Sd + torch.diag(lam * diag + 1e-8 + (1.0 - free))
@@ -195,36 +276,40 @@ def _dense_solve(p: BAProblem, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm,
     return dx[:6 * K].reshape(K, 6), dx[6 * K:].reshape(M, 6)
 
 
-def _cg_solve(p: BAProblem, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm, Jc_m,
-              Jm_m, w_m, cg_iters: int):
+def _cg_solve(lead: BAProblem, shards, lam, Hcc, Hmm, Hpp_inv, bc_red, bm,
+              cg_iters: int):
     """The reduced system solved matrix-free: block-Jacobi preconditioned
     CG whose products with the reduced matrix are taken edge by edge. At
     most cg_iters steps; converged steps are masked, not skipped. Returns
     (dxc [K, 6], dxm [M, 6])."""
     K, L, M = Hcc.shape[0], Hpp_inv.shape[0], Hmm.shape[0]
-    free_c = p.cam_free[:, None]
-    free_m = p.marker_free[:, None]
+    devs = [t.p.e_pt.device for t in shards]
+    free_c = lead.cam_free[:, None]
+    free_m = lead.marker_free[:, None]
     diag_c = torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-10)
     diag_m = torch.clamp(torch.diagonal(Hmm, dim1=-2, dim2=-1), min=1e-10)
-
-    def mv(A, x):
-        return (A @ x[..., None])[..., 0]
 
     def matvec(xc, xm):
         xc = xc * free_c
         xm = xm * free_m
-        # camera <-> marker coupling through the marker edges
-        t_m = mv(Jm_m, xm[p.m_marker])                          # [F, 2]
-        yc_mk = _seg_sum(p.m_kf, K, mv(Jc_m.transpose(-1, -2),
-                                       t_m * w_m[:, None]))
-        t_c = mv(Jc_m, xc[p.m_kf])
-        ym_mk = _seg_sum(p.m_marker, M, mv(Jm_m.transpose(-1, -2),
-                                           t_c * w_m[:, None]))
-        # the Schur subtraction W Hpp^-1 W^T xc, two segment sums
-        u = _seg_sum(p.e_pt, L, mv(Wcp.transpose(-1, -2), xc[p.e_kf]))
-        yc_sch = _seg_sum(p.e_kf, K, mv(Wcp, mv(Hpp_inv, u)[p.e_pt]))
-        yc = mv(Hcc, xc) + yc_mk - yc_sch
-        ym = mv(Hmm, xm) + ym_mk
+        yc_mk, ym_mk, us = [], [], []
+        for t, xci, xmi in zip(shards, _on(devs, xc), _on(devs, xm)):
+            p = t.p
+            # camera <-> marker coupling through the marker edges
+            t_m = _mv(t.Jm_m, xmi[p.m_marker])                   # [F, 2]
+            yc_mk.append(_seg_sum(p.m_kf, K, _mv(t.Jc_m.transpose(-1, -2),
+                                                 t_m * t.w_m[:, None])))
+            t_c = _mv(t.Jc_m, xci[p.m_kf])
+            ym_mk.append(_seg_sum(p.m_marker, M, _mv(
+                t.Jm_m.transpose(-1, -2), t_c * t.w_m[:, None])))
+            # the Schur subtraction W Hpp^-1 W^T xc, two segment sums
+            us.append(_seg_sum(p.e_pt, L, _mv(t.Wcp.transpose(-1, -2),
+                                              xci[p.e_kf])))
+        ss = _on(devs, _mv(Hpp_inv, _psum(us)))
+        yc_sch = [_seg_sum(t.p.e_kf, K, _mv(t.Wcp, s[t.p.e_pt]))
+                  for t, s in zip(shards, ss)]
+        yc = _mv(Hcc, xc) + _psum(yc_mk) - _psum(yc_sch)
+        ym = _mv(Hmm, xm) + _psum(ym_mk)
         # LM damping; fixed states act as identity rows
         yc = (yc + lam * diag_c * xc + 1e-8 * xc) * free_c
         ym = (ym + lam * diag_m * xm + 1e-8 * xm) * free_m
@@ -235,7 +320,7 @@ def _cg_solve(p: BAProblem, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm, Jc_m,
     Pm = torch.linalg.inv_ex(Hmm + diag_embed(lam * diag_m) + 1e-7 * eye6)[0]
 
     def precond(rc, rm):
-        return mv(Pc, rc) * free_c, mv(Pm, rm) * free_m
+        return _mv(Pc, rc) * free_c, _mv(Pm, rm) * free_m
 
     def dot(ac, am, bc2, bm2):
         return torch.sum(ac * bc2) + torch.sum(am * bm2)
@@ -265,49 +350,62 @@ def _cg_solve(p: BAProblem, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm, Jc_m,
             torch.where(torch.isfinite(x_m), x_m, 0.0))
 
 
-def _step(p: BAProblem, cam: Camera, state, lam, huber_delta, use_cg,
-          cg_iters):
+def _step(shards, cams, states, lam, huber_delta, use_cg, cg_iters):
     """One damped Gauss-Newton step of all free states (Schur complement,
-    dense or CG)."""
-    Rcw, tcw, points, Rwm, twm = state
-    pp = p._replace(Rcw=Rcw, tcw=tcw, points=points, Rwm=Rwm, twm=twm)
-    r_e, Jc_e, Jp_e, w_e = _point_edge_terms(pp, cam, huber_delta)
-    r_m, Jc_m, Jm_m, w_m = _marker_edge_terms(pp, cam, huber_delta)
+    dense or CG) from the shards' copies of the state; the new state on the
+    lead device."""
+    lead = shards[0]
+    devs = [p.e_pt.device for p in shards]
+    terms = []
+    for p, cam, st in zip(shards, cams, states):
+        pp = p._replace(**dict(zip(STATE, st)))
+        r_e, Jc_e, Jp_e, w_e = _point_edge_terms(pp, cam, huber_delta)
+        r_m, Jc_m, Jm_m, w_m = _marker_edge_terms(pp, cam, huber_delta)
+        terms.append(_Terms(pp, r_e, Jc_e, Jp_e, w_e, r_m, Jc_m, Jm_m, w_m,
+                            _quad(Jc_e, w_e, Jp_e)))
+    Rcw, tcw, points, Rwm, twm = states[0]
     K, L, M = Rcw.shape[0], points.shape[0], Rwm.shape[0]
     eye3 = torch.eye(3, dtype=Rcw.dtype, device=Rcw.device)
 
     # landmark blocks, damped and inverted per point
-    Hpp = _seg_sum(p.e_pt, L, _quad(Jp_e, w_e, Jp_e))
-    bp = _seg_sum(p.e_pt, L, _grad(Jp_e, w_e, r_e))
+    Hpp = _psum([_seg_sum(t.p.e_pt, L, _quad(t.Jp_e, t.w_e, t.Jp_e))
+                 for t in terms])
+    bp = _psum([_seg_sum(t.p.e_pt, L, _grad(t.Jp_e, t.w_e, t.r_e))
+                for t in terms])
     dpp = torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-10)
     adj, det = inv3x3_adjugate(Hpp + lam * diag_embed(dpp) + 1e-9 * eye3)
     Hpp_inv = adj / det[..., None, None]
     Hpp_inv = torch.where(torch.isfinite(Hpp_inv), Hpp_inv, 0.0)
 
     # camera and marker diagonal blocks
-    Hcc = (_seg_sum(p.e_kf, K, _quad(Jc_e, w_e, Jc_e))
-           + _seg_sum(p.m_kf, K, _quad(Jc_m, w_m, Jc_m)))
-    bc = (_seg_sum(p.e_kf, K, _grad(Jc_e, w_e, r_e))
-          + _seg_sum(p.m_kf, K, _grad(Jc_m, w_m, r_m)))
-    Hmm = _seg_sum(p.m_marker, M, _quad(Jm_m, w_m, Jm_m))
-    bm = _seg_sum(p.m_marker, M, _grad(Jm_m, w_m, r_m))
+    Hcc = _psum([_seg_sum(t.p.e_kf, K, _quad(t.Jc_e, t.w_e, t.Jc_e))
+                 + _seg_sum(t.p.m_kf, K, _quad(t.Jc_m, t.w_m, t.Jc_m))
+                 for t in terms])
+    bc = _psum([_seg_sum(t.p.e_kf, K, _grad(t.Jc_e, t.w_e, t.r_e))
+                + _seg_sum(t.p.m_kf, K, _grad(t.Jc_m, t.w_m, t.r_m))
+                for t in terms])
+    Hmm = _psum([_seg_sum(t.p.m_marker, M, _quad(t.Jm_m, t.w_m, t.Jm_m))
+                 for t in terms])
+    bm = _psum([_seg_sum(t.p.m_marker, M, _grad(t.Jm_m, t.w_m, t.r_m))
+                for t in terms])
 
-    # camera-point coupling per edge [E, 6, 3]; reduced right-hand side
-    Wcp = _quad(Jc_e, w_e, Jp_e)
-    hb = (Hpp_inv @ bp[..., None])[..., 0]                        # [L, 3]
-    bc_red = bc - _seg_sum(p.e_kf, K, (Wcp @ hb[p.e_pt][..., None])[..., 0])
+    # reduced right-hand side
+    hb = _on(devs, _mv(Hpp_inv, bp))                              # [L, 3]
+    bc_red = bc - _psum([_seg_sum(t.p.e_kf, K, _mv(t.Wcp, h[t.p.e_pt]))
+                         for t, h in zip(terms, hb)])
 
     if use_cg:
-        dxc, dxm = _cg_solve(p, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm,
-                             Jc_m, Jm_m, w_m, cg_iters)
+        dxc, dxm = _cg_solve(lead, terms, lam, Hcc, Hmm, Hpp_inv, bc_red,
+                             bm, cg_iters)
     else:
-        dxc, dxm = _dense_solve(p, lam, Hcc, Hmm, Hpp_inv, Wcp, bc_red, bm,
-                                Jc_m, Jm_m, w_m)
+        dxc, dxm = _dense_solve(lead, terms, lam, Hcc, Hmm, Hpp_inv, bc_red,
+                                bm)
 
     # back-substitute the points
-    Wt_dxc = _seg_sum(p.e_pt, L, (Wcp.transpose(-1, -2)
-                                  @ dxc[p.e_kf][..., None])[..., 0])
-    dp = (Hpp_inv @ (bp - Wt_dxc)[..., None])[..., 0] * p.pt_free[:, None]
+    Wt_dxc = _psum([_seg_sum(t.p.e_pt, L, _mv(t.Wcp.transpose(-1, -2),
+                                               d[t.p.e_kf]))
+                    for t, d in zip(terms, _on(devs, dxc))])
+    dp = _mv(Hpp_inv, bp - Wt_dxc) * lead.pt_free[:, None]
     dp = torch.where(torch.isfinite(dp), dp, 0.0)
 
     dRc, dtc = se3_exp(dxc)
@@ -317,40 +415,62 @@ def _step(p: BAProblem, cam: Camera, state, lam, huber_delta, use_cg,
     return (Rn, tn, points + dp, Rwm_n, twm_n)
 
 
+def _chi2(shards, cams, states):
+    """(total chi2 summed over the shards, each shard's (c_e, c_m))."""
+    parts = [_total_chi2(p._replace(**dict(zip(STATE, st))), cam)
+             for p, cam, st in zip(shards, cams, states)]
+    return _psum([c[0] for c in parts]), [c[1:] for c in parts]
+
+
 def ba_solve(p: BAProblem, cam: Camera, iters: int = 10,
              huber_delta: float = 2.4477, lam0: float = 1e-4,
-             solver: str = "auto", cg_iters: int = 32) -> BAResult:
+             solver: str = "auto", cg_iters: int = 32,
+             mesh=None) -> BAResult:
     """LM with the Schur complement: up to `iters` iterations, each step
     accepted only if it lowers the total chi2; stops (masks its updates)
     after two iterations without a relative improvement of 1e-6. `solver`
     "dense" or "cg" picks the reduced system's solver, "auto" CG when the
-    problem has more than DENSE_MAX_CAMS cameras."""
+    problem has more than DENSE_MAX_CAMS cameras.
+
+    mesh (a list of torch devices, repeats allowed): the edge lists are cut
+    into len(mesh) shards (shard_problem) and every sum over edges is taken
+    per shard and summed over the shards, as the JAX solve's psum_axis
+    does; the result lies on mesh[0]. JAX's edges_by_point, which fuses
+    the CG product's sums over the shards to cut interconnect traffic, has
+    no counterpart: it changes no result. Without a mesh the problem is
+    one shard."""
     if solver not in ("auto", "dense", "cg"):
         raise ValueError(f"solver {solver!r}: auto, dense or cg")
     use_cg = solver == "cg" or (solver == "auto"
                                 and p.Rcw.shape[0] > DENSE_MAX_CAMS)
-    dev = p.Rcw.device
-    state = (p.Rcw, p.tcw, p.points, p.Rwm, p.twm)
-    chi2_cur, _, _ = _total_chi2(p, cam)
+    shards = [p] if mesh is None else shard_problem(p, mesh)
+    devs = [s.e_pt.device for s in shards]
+    cams = [to_device(cam, d) for d in devs]
+    states = [tuple(getattr(s, k) for k in STATE) for s in shards]
+    dev = devs[0]
+    chi2_cur, _ = _chi2(shards, cams, states)
     lam = torch.full((), lam0, dtype=torch.float32, device=dev)
     stall = torch.zeros((), dtype=torch.int64, device=dev)
     for _ in range(iters):
         active = stall < 2
-        new = _step(p, cam, state, lam, huber_delta, use_cg, cg_iters)
-        chi2_new, _, _ = _total_chi2(p._replace(
-            Rcw=new[0], tcw=new[1], points=new[2], Rwm=new[3], twm=new[4]),
-            cam)
+        new = _step(shards, cams, states, lam, huber_delta, use_cg, cg_iters)
+        # the candidate's copies on the shards: the state's one copy per
+        # LM iteration
+        news = [new] + [tuple(x.to(d) for x in new) for d in devs[1:]]
+        chi2_new, _ = _chi2(shards, cams, news)
         accept = active & (chi2_new < chi2_cur)
         improved = chi2_new < chi2_cur * (1.0 - 1e-6)
-        state = tuple(torch.where(accept, n, o) for n, o in zip(new, state))
+        states = [tuple(torch.where(a, n, o) for n, o in zip(nw, st))
+                  for a, nw, st in zip(_on(devs, accept), news, states)]
         lam = torch.where(active, torch.clamp(
             torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e5), lam)
         chi2_cur = torch.where(accept, chi2_new, chi2_cur)
         stall = torch.where(active, torch.where(improved, 0, stall + 1),
                             stall)
-    chi2, c_e, c_m = _total_chi2(p._replace(
-        Rcw=state[0], tcw=state[1], points=state[2], Rwm=state[3],
-        twm=state[4]), cam)
+    chi2, per = _chi2(shards, cams, states)
+    c_e = torch.cat([c[0].to(dev) for c in per]) if len(per) > 1 else per[0][0]
+    c_m = torch.cat([c[1].to(dev) for c in per]) if len(per) > 1 else per[0][1]
+    state = states[0]
     return BAResult(Rcw=state[0], tcw=state[1], points=state[2],
                     Rwm=state[3], twm=state[4], chi2=chi2, edge_chi2=c_e,
                     medge_chi2=c_m)

@@ -5,7 +5,7 @@ plane update.
 Port of orb_slam2_aruco_tpu/pipeline/mapping.py (reference
 src/LocalMapping.cc and the map-building parts of Tracking,
 CreateInitialMapMonocular Tracking.cc:690-819 and CreateNewKeyFrame
-:1394-1460), all of it but the distributed BA. Every function takes the
+:1394-1460), the distributed global BA included. Every function takes the
 map and returns a new one; keyframe slots are Python ints the host already
 knows (`SlamSystem` allocates them from its occupancy mirror), so no step
 reads the device to index.
@@ -32,6 +32,7 @@ from orb_slam2_aruco_tpu_torch.ops import matching
 from orb_slam2_aruco_tpu_torch.ops.orb import unpack_pm1
 from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
 from orb_slam2_aruco_tpu_torch.optim import ba
+from orb_slam2_aruco_tpu_torch.parallel import dist_ba
 from orb_slam2_aruco_tpu_torch.pipeline.frontend import Frame, scale_sigma2
 from orb_slam2_aruco_tpu_torch.pipeline.tracking import mark, row
 from orb_slam2_aruco_tpu_torch.utils import threefry
@@ -519,6 +520,32 @@ def bundle_adjust(state: MapState, center_kf: int, cam: Camera,
     out = ba.ba_solve(prob, cam, iters=iters,
                       huber_delta=cfg.optim.huber_delta,
                       lam0=cfg.optim.lm_lambda_init)
+    return writeback_ba(state, out, prob.e_mask, sel, sel_ok, pt_sel, pt_ok,
+                        cfg, propagate=window_all,
+                        erase_outliers=not window_all)
+
+
+def bundle_adjust_distributed(state: MapState, center_kf: int, cam: Camera,
+                              cfg: SlamConfig, mesh, max_cams: int = 256,
+                              max_pts: int = 8192, iters: int = 10,
+                              window_all: bool = True, pt_offset: int = 0):
+    """Global BA with the observations sharded over `mesh`, a list of
+    devices (parallel.dist_ba.distributed_ba_solve): bundle_adjust's
+    problem and write-back around the sharded solve. Enabled in the
+    tracking loop by cfg.optim.distributed_gba. The solve's result lies on
+    mesh[0], so mesh[0] must be the map's device. Returns (state, chi2)."""
+    mesh = dist_ba.make_mesh(devices=mesh)
+    if mesh[0] != state.kf_Rcw.device:
+        raise ValueError(f"the mesh's lead device {mesh[0]} is not the "
+                         f"map's device {state.kf_Rcw.device}")
+    prob, sel, sel_ok, pt_sel, pt_ok = build_ba_problem(
+        state, center_kf, cfg, max_cams=max_cams, max_pts=max_pts,
+        window_all=window_all, pt_offset=pt_offset)
+    out = dist_ba.distributed_ba_solve(prob, cam, mesh, iters=iters,
+                                       huber_delta=cfg.optim.huber_delta,
+                                       lam0=cfg.optim.lm_lambda_init)
+    # the write-back indexes edges by the original [max_cams * N] layout
+    out = out._replace(edge_chi2=out.edge_chi2[:prob.e_kf.shape[0]])
     return writeback_ba(state, out, prob.e_mask, sel, sel_ok, pt_sel, pt_ok,
                         cfg, propagate=window_all,
                         erase_outliers=not window_all)

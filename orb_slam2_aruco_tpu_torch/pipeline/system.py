@@ -33,8 +33,10 @@ the Tracking state machine, Tracking.cc:192-492), in two modes:
 
 A LOST frame relocalizes by a bound marker, else by BoW candidates and
 RANSAC PnP (both modes). `save_map` writes the map as the JAX package's
-checkpoint. Not ported yet: the distributed global BA (ROADMAP.md item
-11; one card takes the reference's single-device branch).
+checkpoint. With `optim.distributed_gba` the global BA slices shard their
+observations over a device list (`_gba_mesh`, by default every CUDA
+device; parallel/dist_ba.py) when it has more than one entry; one card
+takes the single-device branch, as the reference does on one chip.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from orb_slam2_aruco_tpu_torch.geometry import camera as cam_mod
 from orb_slam2_aruco_tpu_torch.geometry.lie import se3_compose, se3_inverse
 from orb_slam2_aruco_tpu_torch.io import checkpoint
 from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
+from orb_slam2_aruco_tpu_torch.parallel import dist_ba
 from orb_slam2_aruco_tpu_torch.pipeline import (
     initializer,
     loop_closing,
@@ -96,6 +99,9 @@ class SlamSystem:
         self.bow_consistency = loop_closing.ConsistencyTracker(
             cfg.loop.consistency_threshold)
         self._in_rewind = False
+        # the distributed global BA's device list (None: the map's device,
+        # then the other CUDA devices, at its first slice)
+        self._gba_mesh = None
         self.reset()
 
     def reset(self, state=None):
@@ -762,7 +768,9 @@ class SlamSystem:
         iterations over the whole map, its point bucket rotating from slice
         to slice, then the tracking context re-anchored. The bucket grows
         when keyframes were inserted since it was sized; halfway through,
-        one more whole-map fuse."""
+        one more whole-map fuse. With optim.distributed_gba and a device
+        list of more than one entry the slice's observations are sharded
+        over it (the JAX package's system.py:1204-1215)."""
         cfg = self.cfg
         ref = self.ref_kf
         T_ref0 = (self.map.kf_Rcw[ref], self.map.kf_tcw[ref])
@@ -772,10 +780,26 @@ class SlamSystem:
                                max(self._gba_shape[1], pb1))
             self._gba_shape_kfs = self.n_keyframes
         gba_cams, gba_pts = self._gba_shape
-        self.map, _ = mapping.bundle_adjust(
-            self.map, self.last_kf_slot, self.cam, cfg, max_cams=gba_cams,
-            max_pts=gba_pts, iters=cfg.optim.gba_slice_iters,
-            window_all=True, pt_offset=self._gba_pt_offset)
+        if cfg.optim.distributed_gba and self._gba_mesh is None:
+            # the map's device leads: the solve's result lands there
+            lead = self.map.kf_Rcw.device
+            self._gba_mesh = [lead] + (
+                [d for d in dist_ba.make_mesh() if d != lead]
+                if lead.type == "cuda" else [])
+        if cfg.optim.distributed_gba and len(self._gba_mesh) > 1:
+            self.map, _ = mapping.bundle_adjust_distributed(
+                self.map, self.last_kf_slot, self.cam, cfg, self._gba_mesh,
+                max_cams=gba_cams, max_pts=gba_pts,
+                iters=cfg.optim.gba_slice_iters, window_all=True,
+                pt_offset=self._gba_pt_offset)
+            self.stats["gba_slices_distributed"] = self.stats.get(
+                "gba_slices_distributed", 0) + 1
+        else:
+            self.map, _ = mapping.bundle_adjust(
+                self.map, self.last_kf_slot, self.cam, cfg,
+                max_cams=gba_cams, max_pts=gba_pts,
+                iters=cfg.optim.gba_slice_iters, window_all=True,
+                pt_offset=self._gba_pt_offset)
         self._gba_pt_offset = ((self._gba_pt_offset + gba_pts)
                                % cfg.map.max_points)
         self.pending_gba_iters -= cfg.optim.gba_slice_iters

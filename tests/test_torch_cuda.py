@@ -488,3 +488,121 @@ def test_pipelined_frame_dispatch_makes_no_hidden_synchronizing_call(
             code = linecache.getline(f, line)
             assert os.path.basename(f) == "tracking.py", where
             assert "bool(x)" in code or "synchronize()" in code, code
+
+
+def _ref_map(name, device):
+    import json
+
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+    from orb_slam2_aruco_tpu_torch.worldmap.state import (
+        MapState,
+        state_from_numpy,
+    )
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "orb_slam2_aruco_tpu_torch", "data",
+        f"ref_{name}.npz")
+    with np.load(path) as z:
+        arrays = {f: z[f] for f in MapState._fields}
+        cfg = SlamConfig.from_dict(json.loads(str(z["ref_cfg"])))
+    return cfg, state_from_numpy(arrays, device), arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_distributed_ba_on_the_card(cuda_device, solver):
+    """The sharded solve over lists of cuda:0 against ba_solve on the card
+    and the 8-shard CPU solve: a 1-entry list bit for bit (deterministic
+    algorithms), 2 / 4 / 8 entries within JAX's distributed-vs-single
+    limits (R 2e-4, t 2e-3, points 5e-3), edge_chi2 in the caller's
+    order; and bundle_adjust_distributed on ref_small's map."""
+    from orb_slam2_aruco_tpu_torch.geometry.camera import camera_from_config
+    from orb_slam2_aruco_tpu_torch.optim import ba
+    from orb_slam2_aruco_tpu_torch.parallel import dist_ba
+    from orb_slam2_aruco_tpu_torch.pipeline import mapping
+
+    cfg, state, arrays = _ref_map("small", cuda_device)
+    cpu_cfg, cpu_state, _ = _ref_map("small", "cpu")
+    cam = camera_from_config(cfg.camera, cuda_device)
+    valid = np.flatnonzero(arrays["kf_valid"])
+    k = int(valid[np.argmax(arrays["kf_frame_id"][valid])])
+    prob = mapping.build_ba_problem(state, k, cfg, max_cams=16, max_pts=2048,
+                                    window_all=True)[0]
+    kw = dict(iters=4, solver=solver, huber_delta=cfg.optim.huber_delta,
+              lam0=cfg.optim.lm_lambda_init)
+    single = ba.ba_solve(prob, cam, **kw)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = ba.ba_solve(prob, cam, **kw)
+        one = ba.ba_solve(prob, cam, mesh=[torch.device("cuda", 0)], **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(one, det):
+        assert torch.equal(a, b)
+    cpu_prob = mapping.build_ba_problem(cpu_state, k, cpu_cfg, max_cams=16,
+                                        max_pts=2048, window_all=True)[0]
+    cpu8 = ba.ba_solve(*dist_ba.partition_edges_by_point(cpu_prob, 8)[:1],
+                       camera_from_config(cfg.camera), mesh=["cpu"] * 8,
+                       **kw)
+    for n in (2, 4, 8):
+        mesh = dist_ba.make_mesh(devices=["cuda"] * n)
+        assert mesh == [torch.device("cuda", 0)] * n
+        part, scatter = dist_ba.partition_edges_by_point(prob, n)
+        out = ba.ba_solve(dist_ba.pad_edges_to(part, n), cam, mesh=mesh,
+                          **kw)
+        for got, want in ((out, single), (out, cpu8)):
+            np.testing.assert_allclose(got.Rcw.cpu(), want.Rcw.cpu(),
+                                       atol=2e-4)
+            np.testing.assert_allclose(got.tcw.cpu(), want.tcw.cpu(),
+                                       atol=2e-3)
+            np.testing.assert_allclose(got.points.cpu(), want.points.cpu(),
+                                       atol=5e-3)
+    if solver == "dense":
+        mesh = dist_ba.make_mesh(devices=["cuda:0"] * 4)
+        st, chi = mapping.bundle_adjust_distributed(
+            state, k, cam, cfg, mesh, max_cams=16, max_pts=2048, iters=4)
+        st1, chi1 = mapping.bundle_adjust(state, k, cam, cfg, max_cams=16,
+                                          max_pts=2048, iters=4,
+                                          window_all=True)
+        np.testing.assert_allclose(float(chi), float(chi1), rtol=1e-3)
+        # the result is written into the map: the map's device leads
+        with pytest.raises(ValueError, match="lead device"):
+            mapping.bundle_adjust_distributed(
+                state, k, cam, cfg, ["cpu"] + mesh, max_cams=16,
+                max_pts=2048, iters=1)
+        np.testing.assert_allclose(st.kf_tcw.cpu(), st1.kf_tcw.cpu(),
+                                   atol=2e-3)
+        np.testing.assert_allclose(st.pt_xyz.cpu(), st1.pt_xyz.cpu(),
+                                   atol=5e-3)
+        out = dist_ba.distributed_ba_solve(prob, cam, mesh, iters=4)
+        c_e = ba._total_chi2(prob._replace(
+            Rcw=out.Rcw, tcw=out.tcw, points=out.points, Rwm=out.Rwm,
+            twm=out.twm), cam)[1]
+        torch.testing.assert_close(out.edge_chi2, c_e, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_viewer_reads_a_map_on_the_card(cuda_device):
+    """snapshot_map and the map view of a map on the card equal those of
+    its CPU copy, and the HTTP viewer serves it."""
+    import json
+    import urllib.request
+
+    from orb_slam2_aruco_tpu_torch.viz import framedrawer, viewer
+
+    _, state, _ = _ref_map("full", cuda_device)
+    _, cpu_state, _ = _ref_map("full", "cpu")
+    want = viewer.snapshot_map(cpu_state)
+    assert json.dumps(viewer.snapshot_map(state)) == json.dumps(want)
+    np.testing.assert_array_equal(framedrawer.draw_map_topdown(state),
+                                  framedrawer.draw_map_topdown(cpu_state))
+    v = viewer.MapViewer(port=0)
+    try:
+        v.update(map_state=state, cam_Rcw=state.kf_Rcw[0],
+                 cam_tcw=state.kf_tcw[0], status="state: OK")
+        st = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{v.port}/state", timeout=10).read())
+        assert st["map"] == json.loads(json.dumps(want))
+        assert st["cam"] is not None
+    finally:
+        v.close()

@@ -119,6 +119,46 @@ def test_lie_matches_jax():
                                np.asarray(jlie.orthonormalize(Rj)), atol=2e-6)
 
 
+def test_se3_log_and_matrix_match_jax():
+    rng = np.random.default_rng(12)
+    xi = rng.normal(size=(64, 6)).astype(np.float32)
+    for scale in (1.0, 0.3):        # |omega| > pi wraps; 0.3: xi round-trips
+        Rj, tj = jlie.se3_exp(jnp.asarray(xi * scale))
+        Rt, tt = _t(np.asarray(Rj)), _t(np.asarray(tj))
+        got = tlie.se3_log(Rt, tt)
+        want = np.asarray(jlie.se3_log(Rj, tj))
+        np.testing.assert_allclose(_n(got), want, atol=5e-4)
+        R2, t2 = tlie.se3_exp(got)
+        np.testing.assert_allclose(_n(R2), np.asarray(Rj), atol=1e-4)
+        np.testing.assert_allclose(_n(t2), np.asarray(tj), atol=1e-3)
+        if scale < 1:
+            np.testing.assert_allclose(_n(got), xi * scale, atol=1e-4)
+        np.testing.assert_array_equal(_n(tlie.se3_matrix(Rt, tt)),
+                                      np.asarray(jlie.se3_matrix(Rj, tj)))
+    assert tlie.se3_matrix(Rt[:2].reshape(2, 1, 3, 3),
+                           tt[:2].reshape(2, 1, 3)).shape == (2, 1, 4, 4)
+
+
+def test_distortion_matches_jax():
+    rng = np.random.default_rng(13)
+    cc = jconfig.CameraConfig(dist=(-0.1, 0.02, 0.001, -0.002, 0.003))
+    jc = jcam.camera_from_config(cc)
+    tc = tcam.camera_from_config(tconfig.CameraConfig(**dataclasses.asdict(cc)))
+    xn = rng.uniform(-0.4, 0.4, (256, 2)).astype(np.float32)
+    xd = tcam.distort_normalized(tc, _t(xn))
+    np.testing.assert_allclose(_n(xd), np.asarray(jcam.distort_normalized(
+        jc, jnp.asarray(xn))), atol=1e-6)
+    np.testing.assert_allclose(_n(tcam.undistort_normalized(tc, xd)), xn,
+                               atol=1e-5)
+    xyz = rng.uniform([-1, -1, 1], [1, 1, 4], (50, 3)).astype(np.float32)
+    got = tcam.project(tc, _t(xyz), distort=True)
+    np.testing.assert_allclose(_n(got), np.asarray(jcam.project(
+        jc, jnp.asarray(xyz), distort=True)), atol=1e-3)
+    # undistorting the distorted projection gives the pinhole projection
+    np.testing.assert_allclose(_n(tcam.undistort_pixels(tc, got)),
+                               _n(tcam.project(tc, _t(xyz))), atol=1e-2)
+
+
 def test_camera_and_ippe_match_jax():
     rng = np.random.default_rng(11)
     cc = jconfig.CameraConfig(dist=(-0.1, 0.02, 0.001, -0.002, 0.0))

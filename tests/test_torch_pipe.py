@@ -398,16 +398,20 @@ def test_frame_timer_and_device_trace(tmp_path):
 def test_example_two_pass_writes_a_trajectory_and_a_map(tmp_path, capsys):
     """The port's two-pass example at 320x240, 300 features, 12 frames on
     the CPU: its TUM file and its map load with the JAX package's
-    loaders."""
+    loaders, and its --save-views PNG is JAX's drawing of that map, byte
+    for byte."""
     from orb_slam2_aruco_tpu.io import checkpoint as jck
     from orb_slam2_aruco_tpu.io import trajectory as jtraj
+    from orb_slam2_aruco_tpu.viz import framedrawer as jdraw
     from orb_slam2_aruco_tpu_torch.examples import mono_synthetic
 
     out, mpath = tmp_path / "traj.tum", tmp_path / "map.npz"
+    views = tmp_path / "views"
     rc = mono_synthetic.main([
         "--frames", "12", "--width", "320", "--height", "240",
         "--features", "300", "--two-pass", "--chunk", "4", "--device", "cpu",
-        "--out", str(out), "--save-map", str(mpath)])
+        "--out", str(out), "--save-map", str(mpath),
+        "--save-views", str(views)])
     assert rc == 0
     text = capsys.readouterr().out
     assert "ATE RMSE vs ground truth:" in text
@@ -418,3 +422,6 @@ def test_example_two_pass_writes_a_trajectory_and_a_map(tmp_path, capsys):
     state = jck.load_map(str(mpath))
     assert int(state.num_keyframes()) >= 2
     assert jck.load_extras(str(mpath))["kf_ts64"].dtype == np.float64
+    assert f"map view -> {views / 'map.png'}" in text
+    assert (views / "map.png").read_bytes() == jdraw.encode_png(
+        jdraw.draw_map_topdown(state))

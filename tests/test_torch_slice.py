@@ -47,6 +47,11 @@ byte-equal):
 
     python tests/test_torch_slice.py \
         --regen|--serving|--slam|--loop|--pipe [small|full]
+
+`add_video_reference` (`--video`, needs cv2) writes a third file,
+ref_video.npz: the real-footage sequence of tests/test_ingest.py's 25h7
+two-pass test as the JAX VideoSource decodes it, and the JAX
+examples/mono_video.py CLI's run over it.
 """
 
 from __future__ import annotations
@@ -1098,11 +1103,120 @@ def add_pipe_reference(which=("small", "full"), out_dir=DATA_DIR):
               flush=True)
 
 
+# the real-footage sequence (tests/test_ingest.py::test_video_25h7_two_pass_
+# ate's): tools/independent_seq.py's ARUCO_MIP_25h7 fly-by, written as an
+# MJPG video, decoded by the JAX VideoSource and run through the JAX
+# examples/mono_video.py CLI with these options
+VIDEO_SEQ = dict(n_frames=18, width=480, height=360,
+                 dict_name="ARUCO_MIP_25h7", noise_sigma=3.0)
+VIDEO_ARGS = ["--dict", "ARUCO_MIP_25h7", "--marker-size", "0.165",
+              "--features", "700", "--two-pass", "--chunk", "6"]
+VIDEO_PATH = os.path.join(DATA_DIR, "ref_video.npz")
+
+
+def add_video_reference(out_path=VIDEO_PATH):
+    """Record ref_video.npz: the 25h7 fly-by's frames as the JAX VideoSource
+    decodes them from the MJPG file (frames, ts), the ground truth (gt_R,
+    gt_t) and calibration (K), and the JAX CLI's run over that file
+    (VIDEO_ARGS, --cpu, the OpenCV calibration yml): pass-1 state per frame
+    id (-1 without a record; pass 2's records follow with later ids), keyframe count and keyframe frame ids, stats,
+    the second pass's poses (pass2_ok, pass2_R, pass2_t) and their ATE
+    against the ground truth (SE3-aligned)."""
+    import runpy
+    import time
+    from unittest import mock
+
+    import cv2
+
+    from orb_slam2_aruco_tpu.config import CameraConfig
+    from orb_slam2_aruco_tpu.io import ingest, trajectory
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from independent_seq import render_sequence, write_video
+
+    t0 = time.perf_counter()
+    frames, poses, K, _ = render_sequence(**VIDEO_SEQ)
+    w, h = VIDEO_SEQ["width"], VIDEO_SEQ["height"]
+    systems, pass2 = [], []
+    real_init = SlamSystem.__init__
+    real_batch = SlamSystem.track_monocular_batch
+
+    def init(self, *a, **k):
+        systems.append(self)
+        real_init(self, *a, **k)
+
+    def batch(self, *a, **k):
+        out = real_batch(self, *a, **k)
+        pass2.extend(out)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vid = os.path.join(tmp, "seq25h7.avi")
+        write_video(vid, frames)
+        calib = os.path.join(tmp, "calib.yml")
+        fs = cv2.FileStorage(calib, cv2.FILE_STORAGE_WRITE)
+        fs.write("camera_matrix", K)
+        fs.write("distortion_coefficients", np.zeros((1, 5)))
+        fs.write("image_width", w)
+        fs.write("image_height", h)
+        fs.release()
+        camc = CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]),
+                            cx=float(K[0, 2]), cy=float(K[1, 2]),
+                            dist=(0, 0, 0, 0, 0), width=w, height=h)
+        decoded = list(ingest.VideoSource(vid, camc))
+        argv = ["mono_video.py", "--video", vid, "--camera", calib,
+                "--out", os.path.join(tmp, "traj.tum"), "--cpu"] + VIDEO_ARGS
+        old = sys.argv
+        sys.argv = argv
+        try:
+            with mock.patch.object(SlamSystem, "__init__", init), \
+                    mock.patch.object(SlamSystem, "track_monocular_batch",
+                                      batch):
+                runpy.run_path(os.path.join(REPO, "examples", "mono_video.py"),
+                               run_name="__main__")
+        finally:
+            sys.argv = old
+    slam, = systems
+    n = len(decoded)
+    state = np.full(n, -1, np.int32)
+    for r in slam.get_trajectory():
+        if r.frame_id < n:                   # pass 1; pass 2's ids follow
+            state[r.frame_id] = r.state.value
+    fids, _, _, _ = slam.keyframe_trajectory()
+    ok = np.asarray([p is not None for p in pass2])
+    eye = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    R2 = np.stack([np.asarray((p or eye)[0], np.float32) for p in pass2])
+    t2 = np.stack([np.asarray((p or eye)[1], np.float32) for p in pass2])
+    gt_R = np.stack([np.asarray(g[0], np.float32) for g in poses])
+    gt_t = np.stack([np.asarray(g[1], np.float32) for g in poses])
+    ate = trajectory.ate_rmse(
+        trajectory.camera_centers(R2[ok], t2[ok]),
+        trajectory.camera_centers(gt_R[ok], gt_t[ok]), align=True,
+        with_scale=False)
+    np.savez_compressed(
+        out_path, frames=np.stack([f for f, _ in decoded]),
+        ts=np.asarray([t for _, t in decoded], np.float64),
+        K=np.asarray(K, np.float64), gt_R=gt_R, gt_t=gt_t,
+        state=state, n_kf=np.asarray(slam.n_keyframes, np.int32),
+        kf_fid=np.asarray(fids, np.int32), pass2_ok=ok, pass2_R=R2,
+        pass2_t=t2, ate=np.asarray(ate, np.float64),
+        args=np.asarray(json.dumps(VIDEO_ARGS)),
+        stats=np.asarray(json.dumps({k: int(v) for k, v in
+                                     slam.stats.items()
+                                     if not k.startswith("_")})))
+    print(f"{out_path}: {n} frames, pass-1 states {state.tolist()}, "
+          f"keyframes {np.asarray(fids).tolist()}, pass 2 {int(ok.sum())}/{n} "
+          f"tracked, ATE {ate:.5f} m, {os.path.getsize(out_path)} bytes, "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+
+
 if __name__ == "__main__":
-    modes = ("--regen", "--serving", "--slam", "--loop", "--pipe")
+    modes = ("--regen", "--serving", "--slam", "--loop", "--pipe", "--video")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
-                 "--regen|--serving|--slam|--loop|--pipe [small|full]")
+                 "--regen|--serving|--slam|--loop|--pipe [small|full] | "
+                 "--video")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
@@ -1117,6 +1231,8 @@ if __name__ == "__main__":
         add_slam_reference(picked)
     elif "--pipe" in sys.argv:
         add_pipe_reference(picked)
+    elif "--video" in sys.argv:
+        add_video_reference()
     else:
         add_loop_reference(picked)
 
