@@ -139,14 +139,32 @@ capacity), in phases:
               within 0.5 deg / 2 cm, ATE at most max(1.5 x, +5 mm) of
               JAX's and below 12 cm. Without cv2, VideoSource and
               ImageFolderSource must raise its ImportError.
- 12. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+ 12. api      the public per-frame functions and the generated ArUco
+              dictionaries (data/ref_dicts.npz, recorded from the JAX
+              package by tests/test_torch_slice.py --dicts): (a) the
+              recorded ARUCO_MIP_16h3 and TPU_36h12 frames through
+              make_frame, ids equal to JAX's detect_markers, corners within
+              API_CORNER_TOL_PX; (b) keypoint_angles and describe (K2) on
+              the bench frame equal to their plain versions on the card,
+              descriptors bit-equal to the CPU's, angles and
+              orientation_map within API_ANGLE_TOL_RAD of the CPU's; (c)
+              detect_level with use_pallas None and True identical (K1),
+              False (the XLA route) with K1's score map outside the
+              FAST_BORDER_PX band (nonzero pattern equal, values within
+              FAST_ROUTE_RTOL), the keypoints that differ printed; (d)
+              hamming_popcount equal to matching.distance_matrix; (e)
+              native/quadfind.cpp built at first use into a temporary
+              directory, its quads equal to the committed library's. Then
+              solve_damped (LU) against small_spd_solve (Cholesky) and the
+              ms per call of each entry point.
+ 13. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
 Launch counts are zeroed just before each of slice, quads, stream, slam,
-pipe (its timed depth-4 pass), loop, dist (its system run) and video and
-read just after: each must have launched the kernels of its path (K1-K3
-on slice, stream, slam, pipe, loop, dist and video, K4 on quads), and K1,
-K2 and K3 once per frame built.
+pipe (its timed depth-4 pass), loop, dist (its system run), video and api
+and read just after: each must have launched the kernels of its path
+(K1-K3 on slice, stream, slam, pipe, loop, dist, video and api, K4 on
+quads), and K1, K2 and K3 once per frame built (api: exactly its count).
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -261,6 +279,7 @@ PATH_KERNELS = {
     "loop": ("fast", "patches", "cc_fused"),
     "dist": ("fast", "patches", "cc_fused"),
     "video": ("fast", "patches", "cc_fused"),
+    "api": ("fast", "patches", "cc_fused"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and float32
@@ -2066,6 +2085,253 @@ def video_phase():
     return counts
 
 
+# the api phase: decoded marker corners against the JAX recording (px);
+# the IC angles against the port's CPU result where the moment vector is
+# above ANGLE_MAG_SHARE of its largest (rad); pixels this close to the
+# image edge (the 3-px border band and its 3x3 NMS neighbourhood) where
+# the XLA FAST route may differ from K1, and its values elsewhere (summed
+# in another order) relative
+API_CORNER_TOL_PX = 0.05
+API_ANGLE_TOL_RAD = 1e-4
+ANGLE_MAG_SHARE = 1e-3
+FAST_BORDER_PX = 4
+FAST_ROUTE_RTOL = 1e-5
+# keypoints per detect_level call and SPD systems per solve in the api
+# phase's timings
+API_KPS = 1000
+API_SOLVES = 1024
+
+
+def api_phase(cfg, img_np, smi):
+    """The public per-frame functions the fused paths fold away, and the
+    generated dictionaries, on the card. Returns the kernel launch counts
+    of this run."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.geometry.camera import camera_from_config
+    from orb_slam2_aruco_tpu_torch.ops import fast, image, matching, orb
+    from orb_slam2_aruco_tpu_torch.ops.aruco import detector, native
+    from orb_slam2_aruco_tpu_torch.optim import lm
+    from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
+
+    with np.load(os.path.join(HERE, PKG, "data", "ref_dicts.npz")) as z:
+        rec = {k: z[k] for k in z.files}
+    scenes = sorted(k[:-len("_frame")] for k in rec if k.endswith("_frame"))
+    ocfg, acfg = cfg.orb, cfg.aruco
+    t_args = (ocfg.fast_threshold, ocfg.fast_min_threshold)
+    det_args = (*t_args, ocfg.cell_size, 8, API_KPS, ocfg.patch_radius + 1)
+    gray = torch.as_tensor(img_np).to(DEVICE).float()
+    blurred = image.gaussian_blur(gray, ocfg.blur_ksize, ocfg.blur_sigma)
+    cam = camera_from_config(cfg.camera, DEVICE)
+    dcfg = {d: cfg.replace(aruco=dataclasses.replace(acfg, dictionary=d))
+            for d in scenes}
+    dimg = {d: torch.as_tensor(rec[f"{d}_frame"]).to(DEVICE) for d in scenes}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    # the path: the generated dictionaries' worlds through make_frame, the
+    # three detect_level routes, keypoint_angles and describe
+    frames = {d: make_frame(dimg[d], cam, dcfg[d]) for d in scenes}
+    routes = {r: fast.detect_level(gray, *det_args, use_pallas=r)
+              for r in (None, True, False)}
+    xy = routes[None].xy
+    angles = orb.keypoint_angles(blurred, xy)
+    desc = orb.describe(blurred, xy, angles)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    phase("api", f"kernel launches in the api path: {counts}")
+    check_launches("api", counts)
+    # K1 once per make_frame and per K1-route detect_level, K2 once per
+    # make_frame, keypoint_angles and describe, K3 once per make_frame
+    n = len(scenes)
+    want = {"fast": n + 2, "patches": n + 2, "cc_fused": n,
+            "cc_propagate": 0}
+    if counts != want:
+        raise PhaseError(f"api path launch counts {counts}, expected {want}")
+
+    # (a) the generated dictionaries: JAX's ids, corners within the limit
+    for d in scenes:
+        f = frames[d]
+        want_m = {int(i): c for i, c, v in zip(
+            rec[f"{d}_ids"], rec[f"{d}_corners"], rec[f"{d}_valid"]) if v}
+        got_m = {int(i): c for i, c, v in zip(
+            f.mk_ids.cpu().numpy(), f.mk_corners.cpu().numpy(),
+            f.mk_valid.cpu().numpy()) if v}
+        if got_m.keys() != want_m.keys():
+            raise PhaseError(f"{d}: make_frame decoded {sorted(got_m)}, "
+                             f"JAX {sorted(want_m)}")
+        err = max(float(np.abs(got_m[i] - want_m[i]).max()) for i in want_m)
+        if err > API_CORNER_TOL_PX:
+            raise PhaseError(f"{d}: corners {err:.4f} px off JAX's (limit "
+                             f"{API_CORNER_TOL_PX} px)")
+        phase("api", f"(a) {d} world ({tuple(dimg[d].shape)}): make_frame "
+              f"decoded ids {sorted(got_m)} = JAX's; corners within "
+              f"{err:.5f} px")
+
+    # (b) keypoint_angles and describe (K2) against their plain versions
+    # on the card and the port's CPU result
+    y0, x0 = orb.patch_corners(blurred.shape, xy)
+    patches = orb.extract_patches_torch(blurred, y0, x0)
+    if not (torch.equal(angles, orb.angles_from_patches(patches))
+            and torch.equal(desc, orb.describe_patches(patches, angles))):
+        raise PhaseError("keypoint_angles / describe differ from their "
+                         "plain versions on the card")
+    cpu_img, cpu_xy = blurred.cpu(), xy.cpu()
+    if not torch.equal(orb.describe(cpu_img, cpu_xy, angles.cpu()),
+                       desc.cpu()):
+        raise PhaseError("describe on the card differs from the CPU's")
+    _, _, kx, ky = orb._tables_on(torch.device("cpu"))
+    flat = patches.cpu().reshape(len(xy), -1)
+    kp_mag = torch.hypot(flat @ kx, flat @ ky)
+    strong = kp_mag > ANGLE_MAG_SHARE * kp_mag.max()
+    d_ang = torch.remainder(orb.keypoint_angles(cpu_img, cpu_xy)
+                            - angles.cpu() + np.pi, 2 * np.pi) - np.pi
+    ang_err = float(d_ang.abs()[strong].max())
+    omap = orb.orientation_map(gray)
+    omap_cpu = orb.orientation_map(gray.cpu())
+    okx, oky = (torch.as_tensor(k) for k in orb._moment_kernels())
+    m = torch.nn.functional.conv2d(gray.cpu()[None, None], torch.stack(
+        [okx, oky])[:, None], padding=orb.PATCH_RADIUS)[0]
+    mag = torch.hypot(m[0], m[1])
+    o_strong = mag > ANGLE_MAG_SHARE * mag.max()
+    d_om = torch.remainder(omap.cpu() - omap_cpu + np.pi, 2 * np.pi) - np.pi
+    om_err = float(d_om.abs()[o_strong].max())
+    if ang_err > API_ANGLE_TOL_RAD or om_err > API_ANGLE_TOL_RAD:
+        raise PhaseError(f"angles off the CPU's: keypoint_angles "
+                         f"{ang_err:.2e} rad, orientation_map {om_err:.2e} "
+                         f"rad (limit {API_ANGLE_TOL_RAD})")
+    phase("api", f"(b) {len(xy)} keypoints of the {tuple(gray.shape)} bench "
+          f"frame: keypoint_angles and describe through K2 equal to "
+          f"angles_from_patches / describe_patches of extract_patches_torch "
+          f"on the card; descriptors bit-equal to the CPU's, angles within "
+          f"{ang_err:.2e} rad of them ({int(strong.sum())} strong); "
+          f"orientation_map within {om_err:.2e} rad of the CPU's")
+
+    # (c) the detect_level routes: None is True (K1); False (the XLA
+    # route) differs from K1 only in the border band
+    if not all(torch.equal(a, b) for a, b in zip(routes[None],
+                                                  routes[True])):
+        raise PhaseError("detect_level use_pallas None and True differ")
+    k1 = fast.fast_score_nms(gray, *t_args)
+    s_hi, s_lo = fast._fast_scores(gray, list(t_args))
+    xla = fast.nms3x3(s_lo)
+    xla = torch.where((xla > 0) & (s_hi > 0), xla + fast.BONUS, xla)
+    H, W = gray.shape
+    yy = torch.arange(H, device=DEVICE)[:, None]
+    xx = torch.arange(W, device=DEVICE)[None, :]
+    edge = torch.minimum(torch.minimum(yy, H - 1 - yy),
+                         torch.minimum(xx, W - 1 - xx))
+    inner = edge >= FAST_BORDER_PX
+    same_nz = torch.equal((k1 != 0) & inner, (xla != 0) & inner)
+    rel = float(((k1 - xla).abs() / k1.abs().clamp(min=1e-30))[
+        inner & (k1 != 0)].max())
+    if not same_nz or rel > FAST_ROUTE_RTOL:
+        raise PhaseError(f"the XLA FAST route differs from K1 inside the "
+                         f"border band (same nonzero pattern {same_nz}, "
+                         f"values {rel:.2e} relative)")
+    band_px = int(((k1 != xla) & ~inner).sum())
+
+    def kp_set(kp):
+        return {tuple(p) for p in kp.xy[kp.valid].cpu().tolist()}
+
+    kp_diff = len(kp_set(routes[False]) ^ kp_set(routes[True]))
+    phase("api", f"(c) detect_level: use_pallas None == True (K1); False "
+          f"(XLA route) has K1's nonzero pattern inside the {FAST_BORDER_PX}"
+          f"-px band, values within {rel:.2e} relative; {band_px} band "
+          f"pixels differ; {kp_diff} of {int(routes[True].valid.sum())} "
+          f"keypoints differ")
+
+    # (d) hamming_popcount against the matcher's distance matrix
+    other = frames[scenes[0]].desc
+    hp = orb.hamming_popcount(desc, other)
+    dm = matching.distance_matrix(desc, other)
+    if not (torch.equal(hp.float(), dm) and torch.equal(
+            hp.cpu(), orb.hamming_popcount(desc.cpu(), other.cpu()))):
+        raise PhaseError("hamming_popcount differs from distance_matrix or "
+                         "from the CPU's")
+    phase("api", f"(d) hamming_popcount {tuple(hp.shape)} equal to "
+          f"matching.distance_matrix and to the CPU's")
+
+    # (e) the native library built at first use against the committed one
+    ds = acfg.detect_downsample
+    images = [rec[f"{d}_frame"].astype(np.float32) for d in scenes] + [
+        255.0 * detector.downsample_majority(detector.adaptive_threshold(
+            dimg[d].float(), acfg.adaptive_thresh_win, acfg.adaptive_thresh_c),
+            ds).float().cpu().numpy() for d in scenes]
+    if not native.available():
+        raise PhaseError(f"the committed native library does not load: "
+                         f"{native._load()[1]}")
+    want_q = [native.find_quads_native(im) for im in images]
+    saved = native._LIB_PATH, native._BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        native._LIB_PATH = os.path.join(tmp, "missing", "libquadfind.so")
+        native._BUILD_DIR = os.path.join(tmp, "build")
+        native._load.cache_clear()
+        try:
+            t0 = time.perf_counter()
+            if not native.available():
+                raise PhaseError(f"the native build failed: "
+                                 f"{native._load()[1]}")
+            build_s = time.perf_counter() - t0
+            got_q = [native.find_quads_native(im) for im in images]
+        finally:
+            native._LIB_PATH, native._BUILD_DIR = saved
+            native._load.cache_clear()
+    if not all(np.array_equal(a, b) for a, b in zip(got_q, want_q)):
+        raise PhaseError("the built native library's quads differ from "
+                         "the committed library's")
+    phase("api", f"(e) native/quadfind.cpp built at first use in "
+          f"{build_s:.1f} s; quads {[len(q) for q in got_q]} on the "
+          f"{[tuple(im.shape) for im in images]} frames and binaries equal "
+          f"to the committed library's")
+
+    # the solve departure: LU (solve_damped) against the unrolled Cholesky
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    A = torch.randn((API_SOLVES, 6, 6), device=DEVICE, generator=gen)
+    Hs = A @ A.transpose(-1, -2) + 0.5 * torch.eye(6, device=DEVICE)
+    bs = torch.randn((API_SOLVES, 6), device=DEVICE, generator=gen)
+    lam = torch.full((API_SOLVES,), 1e-4, device=DEVICE)
+    d = torch.diagonal(Hs, dim1=-2, dim2=-1).clamp(min=1e-10)
+    Hd = (Hs + lam[:, None, None] * torch.diag_embed(d)
+          + 1e-10 * torch.eye(6, device=DEVICE))
+    lu, chol = lm.solve_damped(Hs, bs, lam), lm.small_spd_solve(Hd, bs)
+    solve_rel = float(((lu - chol).norm(dim=-1)
+                       / chol.norm(dim=-1)).max())
+
+    rgb = gray[..., None].expand(H, W, 3).contiguous()
+    ms = {
+        "make_frame " + scenes[0]: cuda_ms(
+            lambda: make_frame(dimg[scenes[0]], cam, dcfg[scenes[0]]),
+            reps=5),
+        "detect_level(None)": cuda_ms(
+            lambda: fast.detect_level(gray, *det_args)),
+        "detect_level(True)": cuda_ms(
+            lambda: fast.detect_level(gray, *det_args, use_pallas=True)),
+        "detect_level(False)": cuda_ms(
+            lambda: fast.detect_level(gray, *det_args, use_pallas=False)),
+        "fast_score_map": cuda_ms(lambda: fast.fast_score_map(gray,
+                                                              t_args[1])),
+        "nms3x3": cuda_ms(lambda: fast.nms3x3(s_lo)),
+        "keypoint_angles": cuda_ms(lambda: orb.keypoint_angles(blurred, xy)),
+        "describe": cuda_ms(lambda: orb.describe(blurred, xy, angles)),
+        "orientation_map": cuda_ms(lambda: orb.orientation_map(gray)),
+        "hamming_popcount": cuda_ms(lambda: orb.hamming_popcount(desc,
+                                                                 other)),
+        "to_gray": cuda_ms(lambda: image.to_gray(rgb)),
+        f"small_spd_solve x{API_SOLVES}": cuda_ms(
+            lambda: lm.small_spd_solve(Hd, bs)),
+        f"solve_damped x{API_SOLVES}": cuda_ms(
+            lambda: lm.solve_damped(Hs, bs, lam)),
+    }
+    phase("api", f"6x6 solves: solve_damped (LU) within {solve_rel:.2e} "
+          f"relative of small_spd_solve (Cholesky) on {API_SOLVES} damped "
+          f"SPD systems")
+    phase("api", f"ms per call on the card ({smi}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items()))
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"FAIL: {PKG}/ not found beside chip_smoke.py", flush=True)
@@ -2087,6 +2353,7 @@ def main() -> int:
         by_path["loop"], gba_input = loop_phase()
         by_path["dist"] = dist_phase(gba_input)
         by_path["video"] = video_phase()
+        by_path["api"] = api_phase(cfg, imgs[0], smi)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -3,9 +3,11 @@
 Monocular ORB + ArUco SLAM engine for one NVIDIA H100. The JAX package
 `orb_slam2_aruco_tpu` stays beside this one as the reference; every ported
 function is tested against its JAX counterpart on the same inputs
-(tests/test_torch_*.py). This package imports torch and numpy only, never jax.
+(tests/test_torch_*.py). This package imports torch and numpy only, never jax,
+and reads no file of the JAX package.
 
-It covers every module of the JAX package: SLAM mode from an empty map
+It has every public function and parameter of every JAX module, bar the
+departures ROADMAP.md lists (C1): SLAM mode from an empty map
 (`pipeline.system.SlamSystem`, synchronous or pipelined, with loop closing,
 relocalization and, over a device list, the distributed global BA of
 `parallel/dist_ba.py`), `save_map`, and localization against a saved map of

@@ -220,3 +220,7 @@ class SlamConfig:
                 fields["dist"] = tuple(fields["dist"])
             kw[name] = cls(**fields)
         return SlamConfig(**kw)
+
+
+def default_config() -> SlamConfig:
+    return SlamConfig()

@@ -33,6 +33,23 @@ def save_views(map_state, directory: str) -> str:
     return path
 
 
+# the marker wall's ids (the JAX example's)
+WORLD_IDS = (3, 17, 42, 99, 7, 23, 55, 88)
+
+
+def make_world(dict_name: str, marker_size: float):
+    """The rendered marker wall: WORLD_IDS, less those beyond the
+    dictionary's size (TPU_16h5, alias ARUCO_MIP_16h3, holds 31 codes; the
+    JAX example indexes past them and raises)."""
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+    from orb_slam2_aruco_tpu_torch.ops.aruco.dictionary import get_dictionary
+
+    n = get_dictionary(dict_name).num_ids
+    return synthetic.build_world(
+        [i for i in WORLD_IDS if i < n], dict_name=dict_name,
+        marker_size=marker_size, px_per_m=500.0, spacing=0.6, grid_cols=4)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -76,10 +93,7 @@ def main(argv=None):
     )
 
     print(f"rendering {args.frames} frames ...")
-    world = synthetic.build_world(
-        [3, 17, 42, 99, 7, 23, 55, 88], dict_name=args.dict,
-        marker_size=args.marker_size, px_per_m=500.0, spacing=0.6, grid_cols=4,
-    )
+    world = make_world(args.dict, args.marker_size)
     poses = []
     for i in range(args.frames):
         x = 0.5 + 0.8 * i / args.frames

@@ -24,6 +24,15 @@ class Camera(NamedTuple):
     width: int
     height: int
 
+    @property
+    def K(self):
+        """[..., 3, 3] intrinsic matrix."""
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        return torch.stack([torch.stack([self.fx, z, self.cx], dim=-1),
+                            torch.stack([z, self.fy, self.cy], dim=-1),
+                            torch.stack([z, z, o], dim=-1)], dim=-2)
+
 
 def camera_from_config(cfg: CameraConfig, device="cpu") -> Camera:
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa

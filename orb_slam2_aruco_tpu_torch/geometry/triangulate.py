@@ -57,6 +57,11 @@ def triangulate_dlt(R1, t1, R2, t2, xn1, xn2):
     return (adj @ v[..., None])[..., 0] / det[..., None]
 
 
+def depth_in_cam(R, t, xyz_world):
+    """z-coordinate of world points in a camera (cheirality test input)."""
+    return torch.sum(R[..., 2, :] * xyz_world, dim=-1) + t[..., 2]
+
+
 def parallax_cos(c1, c2, xyz):
     """Cosine of the ray angle at xyz between camera centers c1 and c2."""
     r1 = xyz - c1

@@ -48,6 +48,15 @@ class MarkerWorld:
                            [cx + h, cy + h, 0.0], [cx - h, cy + h, 0.0]],
                           dtype=np.float32)
 
+    def marker_pose_world(self, spec: MarkerSpec):
+        """(Rwm, twm): marker frame -> world. Local +x = world +x, local
+        +y = world -y, local +z = world -z (faces the camera side)."""
+        Rwm = np.asarray([[1.0, 0.0, 0.0], [0.0, -1.0, 0.0],
+                          [0.0, 0.0, -1.0]], dtype=np.float32)
+        twm = np.asarray([spec.center_xy[0], spec.center_xy[1], 0.0],
+                         dtype=np.float32)
+        return Rwm, twm
+
 
 def build_world(marker_ids: Sequence[int], dict_name: str = "ARUCO",
                 marker_size: float = 0.165, grid_cols: int = 4,
@@ -157,6 +166,22 @@ def look_at_plane_pose(cam_xy: Tuple[float, float], distance: float,
     ccenter = np.asarray([cam_xy[0], cam_xy[1], -distance], dtype=np.float32)
     tcw = (-Rcw @ ccenter).astype(np.float32)
     return Rcw, tcw
+
+
+def orbit_trajectory(n_frames: int, center_xy=(0.75, 0.25), distance=2.0,
+                     radius=0.4, max_yaw=0.25, seed: int = 0):
+    """Smooth trajectory sweeping across the marker wall: a list of
+    (Rcw, tcw)."""
+    poses = []
+    for i in range(n_frames):
+        a = 2 * np.pi * i / max(n_frames, 1)
+        cx = center_xy[0] + radius * np.cos(a)
+        cy = center_xy[1] + 0.5 * radius * np.sin(a)
+        yaw = max_yaw * np.sin(a)
+        pitch = 0.5 * max_yaw * np.cos(a)
+        poses.append(look_at_plane_pose((cx, cy), distance, yaw=yaw,
+                                        pitch=pitch))
+    return poses
 
 
 def inject_drift(system, cutoff_fid: int, Rd, td):

@@ -8,6 +8,10 @@ PyTorch headers), so every kernel is built from the checkout at first use:
 
 `build_all()` starts one nvcc per source at once and waits for all of them.
 A failed build raises with nvcc's output; there is no fallback.
+
+`build_host_library(src)` builds a host C++ source (native/quadfind.cpp,
+the optional quad proposer of ops/aruco/native.py) into the same directory
+with native/build.sh's compiler line.
 """
 
 from __future__ import annotations
@@ -52,9 +56,13 @@ def nvcc_path() -> str:
                        "toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
+def _digest(src: str) -> str:
+    with open(src, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
 def _so_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    digest = _digest(os.path.join(SRC_DIR, f"{name}.cu"))
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
@@ -91,6 +99,34 @@ def build_all(names=None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_host_library(src: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile the host C++ source `src` into build_dir (keyed by a hash of
+    the source) unless it is built there, with native/build.sh's line:
+
+        g++ -O3 -march=native -fPIC -shared -std=c++17 <src> -o <lib>
+
+    Returns the library's path; raises with the compiler's output when the
+    build fails."""
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(build_dir, f"lib{stem}-{_digest(src)}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+           src, "-o", tmp]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,11 +1,13 @@
 """ctypes binding to the native quad-proposal library (native/quadfind.cpp).
 
 Port of orb_slam2_aruco_tpu/ops/aruco/native.py: a host-side contour quad
-proposer beside the detector's device path, which stays the default. It
-only reads the committed `native/libquadfind.so`; unlike the JAX package
-it never runs `native/build.sh` when the file is missing (a library must
-not compile code on import or first call): then `available()` is False
-and `find_quads_native` raises.
+proposer beside the detector's device path, which stays the default. At
+first use it loads the committed `native/libquadfind.so`; when that file is
+missing it builds `native/quadfind.cpp` with native/build.sh's compiler
+line into the port's build directory (kernels/build.py's
+build_host_library; never into `native/`) and loads that. When the build
+fails `available()` is False and `find_quads_native` raises with the
+compiler's error.
 """
 
 from __future__ import annotations
@@ -13,23 +15,31 @@ from __future__ import annotations
 import ctypes
 import os
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
+from orb_slam2_aruco_tpu_torch.kernels import build
+
+_NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))), "native", "libquadfind.so")
+        os.path.abspath(__file__))))), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libquadfind.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "quadfind.cpp")
+_BUILD_DIR = build.BUILD_DIR
 
 
 @lru_cache(maxsize=1)
-def _load() -> Optional[ctypes.CDLL]:
-    if not os.path.exists(_LIB_PATH):
-        return None
+def _load() -> Tuple[Optional[ctypes.CDLL], str]:
+    """(the library, or None and why: the compiler's or the loader's
+    error)."""
+    path = _LIB_PATH
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        return None
+        if not os.path.exists(path):
+            path = build.build_host_library(_SRC_PATH, _BUILD_DIR)
+        lib = ctypes.CDLL(path)
+    except (OSError, RuntimeError) as e:
+        return None, str(e)
     lib.quadfind.restype = ctypes.c_int
     lib.quadfind.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
@@ -41,11 +51,11 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_uint8),
     ]
-    return lib
+    return lib, ""
 
 
 def available() -> bool:
-    return _load() is not None
+    return _load()[0] is not None
 
 
 def find_quads_native(
@@ -60,10 +70,9 @@ def find_quads_native(
 ) -> np.ndarray:
     """[H, W] float32 grayscale -> [K, 4, 2] float32 quad corners
     (K <= max_quads)."""
-    lib = _load()
+    lib, why = _load()
     if lib is None:
-        raise RuntimeError("native quadfind library unavailable: "
-                           f"{_LIB_PATH} is missing")
+        raise RuntimeError(f"native quadfind library unavailable: {why}")
     img = np.ascontiguousarray(img, dtype=np.float32)
     h, w = img.shape
     binary = np.empty((h, w), dtype=np.uint8)

@@ -13,6 +13,11 @@ ops/pallas_fast.py::fast_score_nms:
 
 `fast_score_nms_levels` and `fast_score_nms` pick between them only by the
 tensors' device.
+
+`fast_score_map` and `nms3x3` are the JAX package's other route to the same
+map (its XLA branch): the 16 circle reads are rolls of the image (they
+wrap; the 3-px border is masked) and NMS is a 3x3 max with -inf padding.
+`detect_level(use_pallas=False)` takes that route on any device.
 """
 
 from __future__ import annotations
@@ -86,6 +91,50 @@ def fast_score_nms_torch(img, t_hi: float, t_lo: float):
     return torch.where((score > 0.0) & hi, score + BONUS, score)
 
 
+def _fast_scores(img, thresholds):
+    """FAST-9/16 score maps of img [H, W] at several thresholds, the 16
+    circle shifts made once: 0 off corners, else the sum over the circle of
+    max(|d| - t, 0) for the passing polarity; the 3-px border is 0."""
+    h, w = img.shape
+    shifted = torch.stack([torch.roll(img, (-int(dy), -int(dx)), (0, 1))
+                           for dy, dx in _CIRCLE])
+    d = shifted - img[None]
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    border = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
+
+    def arc9(mask):
+        # a contiguous arc of >= 9 on the circular axis, by doubling
+        w2 = mask & torch.roll(mask, -1, 0)
+        w4 = w2 & torch.roll(w2, -2, 0)
+        w8 = w4 & torch.roll(w4, -4, 0)
+        return torch.any(w8 & torch.roll(mask, -8, 0), dim=0)
+
+    outs = []
+    for t in thresholds:
+        is_bright = arc9(d > t)
+        is_dark = arc9(d < -t)
+        sb = torch.sum(torch.clamp(d - t, min=0.0), dim=0)
+        sd = torch.sum(torch.clamp(-d - t, min=0.0), dim=0)
+        score = (torch.where(is_bright, sb, 0.0)
+                 + torch.where(is_dark, sd, 0.0))
+        outs.append(torch.where((is_bright | is_dark) & border, score, 0.0))
+    return outs
+
+
+def fast_score_map(img, threshold: float):
+    """FAST-9/16 corner score of every pixel at one threshold."""
+    return _fast_scores(img, [threshold])[0]
+
+
+def nms3x3(score):
+    """3x3 non-max suppression: keep the pixels that are the max of their
+    neighbourhood (-inf outside the image)."""
+    m = torch.nn.functional.max_pool2d(score[None, None], 3, stride=1,
+                                       padding=1)[0, 0]
+    return torch.where(score >= m, score, 0.0)
+
+
 # levels one K1 launch takes (kMaxLevels in kernels/csrc/fast.cu)
 _MAX_LEVELS = 8
 
@@ -138,16 +187,32 @@ def fast_score_nms(img, t_hi: float, t_lo: float):
 
 def detect_level(img, threshold_high: float, threshold_low: float,
                  cell_size: int, per_cell_k: int, max_kps: int,
-                 edge_margin: int = 16, score=None) -> Keypoints:
+                 edge_margin: int = 16, use_pallas: bool | None = None,
+                 score=None) -> Keypoints:
     """FAST corners on one pyramid level with spatial balancing: score at
     the low threshold (+bonus above the high one), per-cell top-k, then
-    global top-max_kps. `score`, where given, is the level's
-    fast_score_nms map at these thresholds, computed beforehand (as
-    make_frame does for all levels in one K1 launch)."""
+    global top-max_kps.
+
+    use_pallas picks the score route: None or True the K1 route
+    (fast_score_nms: the kernel on a CUDA tensor, its plain version on a
+    CPU tensor, as the JAX package runs its Pallas kernel in interpret mode
+    off the TPU); False the XLA route (_fast_scores at both thresholds,
+    nms3x3, the bonus) on the tensor's own device. `score`, where given, is
+    the level's fast_score_nms map at these thresholds, computed beforehand
+    (as make_frame does for all levels in one K1 launch)."""
     h, w = img.shape
     dev = img.device
-    s = (fast_score_nms(img, threshold_high, threshold_low) if score is None
-         else score)
+    if score is not None:
+        if use_pallas is False:
+            raise ValueError("a precomputed score is the K1 route's: "
+                             "use_pallas=False computes its own")
+        s = score
+    elif use_pallas is False:
+        s_high, s_low = _fast_scores(img, [threshold_high, threshold_low])
+        s = nms3x3(s_low)
+        s = torch.where((s > 0) & (s_high > 0), s + BONUS, s)
+    else:
+        s = fast_score_nms(img, threshold_high, threshold_low)
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
     inside = ((yy >= edge_margin) & (yy < h - edge_margin)

@@ -63,6 +63,14 @@ def build_pyramid(img, num_levels: int, scale: float):
     return levels
 
 
+def gaussian_kernel1d(ksize: int, sigma: float):
+    """[ksize] float32 normalized Gaussian taps (CPU tensor)."""
+    r = ksize // 2
+    x = np.arange(-r, r + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return torch.as_tensor(k / k.sum())
+
+
 def _sep_filter_shift(img, k1):
     """Separable same-size filter with zero padding, as explicit
     shift-multiply-adds in tap order (the JAX package's order)."""
@@ -111,3 +119,14 @@ def box_filter(img, ksize: int):
         return (torch.clamp(i + r, max=n - 1) - torch.clamp(i - r, min=0)) + 1.0
 
     return s / (extent(h)[:, None] * extent(w)[None, :])
+
+
+def to_gray(img):
+    """[H, W, 3] uint8/float RGB -> [H, W] float32 grayscale (BT.601, as
+    cv::cvtColor in Tracking::GrabImageMonocular, reference
+    Tracking.cc:167); a [H, W] image is only cast."""
+    if img.dim() == 2:
+        return img.to(torch.float32)
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32,
+                     device=img.device)
+    return torch.einsum("hwc,c->hw", img.to(torch.float32), w)

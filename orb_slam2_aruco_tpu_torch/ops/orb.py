@@ -49,6 +49,28 @@ def brief_pattern() -> np.ndarray:
 
 
 @lru_cache(maxsize=1)
+def _moment_kernels():
+    """31x31 IC-angle moment kernels (x and y times the radius-15 disc)."""
+    r = PATCH_RADIUS
+    y, x = np.mgrid[-r:r + 1, -r:r + 1]
+    circ = (x * x + y * y <= r * r).astype(np.float32)
+    return (np.asarray(x * circ, dtype=np.float32),
+            np.asarray(y * circ, dtype=np.float32))
+
+
+def orientation_map(img):
+    """Per-pixel IC angle atan2(m01, m10) of the circular 31x31 patch,
+    [H, W] float32 radians. The moments are two zero-padded "same"
+    cross-correlations (F.conv2d applies the kernel unflipped, as
+    lax.conv_general_dilated does); TF32 is off package-wide."""
+    kx, ky = _moment_kernels()
+    k = torch.as_tensor(np.stack([kx, ky])[:, None], device=img.device)
+    m = torch.nn.functional.conv2d(img.to(torch.float32)[None, None], k,
+                                   padding=PATCH_RADIUS)[0]
+    return torch.atan2(m[1], m[0])
+
+
+@lru_cache(maxsize=1)
 def _moment_kernels_patch32():
     """IC-angle moment weights over a flattened 32x32 patch (keypoint at
     (16, 16), circular radius 15)."""
@@ -206,6 +228,20 @@ def extract_patches(img, xy, patch: int = _PATCH):
     return extract_patches_levels([img], [xy], patch)
 
 
+def keypoint_angles(img, xy):
+    """IC angles at keypoints xy [N, 2] (reference IC_Angle,
+    ORBextractor.cc:77-104): the patches by extract_patches (K2 on a CUDA
+    tensor), then angles_from_patches."""
+    return angles_from_patches(extract_patches(img, xy))
+
+
+def describe(img_blurred, xy, angles):
+    """256-bit steered BRIEF at keypoints xy [N, 2] with angles [N] ->
+    packed [N, 8] int32: the patches by extract_patches (K2 on a CUDA
+    tensor), then describe_patches."""
+    return describe_patches(extract_patches(img_blurred, xy), angles)
+
+
 def angles_from_patches(patches):
     """IC angle from [N, 32, 32] patches (two float32 matvecs)."""
     _, _, kx, ky = _tables_on(patches.device)
@@ -254,6 +290,26 @@ def unpack_bits(packed):
     return b.reshape(n, 256).to(torch.float32)
 
 
-def unpack_pm1(packed):
-    """[N, 8] int32 -> [N, 256] float32 in {-1, +1}."""
-    return unpack_bits(packed) * 2.0 - 1.0
+def unpack_pm1(packed, dtype=torch.float32):
+    """[N, 8] int32 -> [N, 256] in {-1, +1}. The JAX package defaults to
+    bf16 for its MXU matmul; the port's callers take float32."""
+    return (unpack_bits(packed) * 2.0 - 1.0).to(dtype)
+
+
+_M1, _M2, _M4 = 0x5555555555555555, 0x3333333333333333, 0x0F0F0F0F0F0F0F0F
+
+
+def _popcount32(x):
+    """Set bits of each int64 holding a 32-bit pattern (SWAR bit count)."""
+    x = x - ((x >> 1) & _M1)
+    x = (x & _M2) + ((x >> 2) & _M2)
+    x = (x + (x >> 4)) & _M4
+    return (x * 0x01010101) >> 24 & 0xFF
+
+
+def hamming_popcount(a, b):
+    """Exact Hamming distances by XOR + popcount: a [N, 8], b [M, 8] packed
+    int32 -> [N, M] int32 (reference ORBmatcher::DescriptorDistance,
+    src/ORBmatcher.cc:1646-1666)."""
+    x = (a.to(torch.int64)[:, None, :] ^ b.to(torch.int64)[None, :, :])
+    return torch.sum(_popcount32(x & 0xFFFFFFFF), dim=-1).to(torch.int32)

@@ -99,27 +99,33 @@ def _reproj(Rcw, tcw, X, uv, cam: Camera):
     return uv - res.project_pinhole(pc, cam.fx, cam.fy, cam.cx, cam.cy), pc
 
 
-def _point_edge_terms(p: BAProblem, cam: Camera, huber_delta):
+def _point_edge_terms(p: BAProblem, cam: Camera, huber_delta,
+                      use_huber=True):
     Rcw = p.Rcw[p.e_kf]
     r, pc = _reproj(Rcw, p.tcw[p.e_kf], p.points[p.e_pt], p.e_uv, cam)
     Jc = res.jac_pose(pc, cam.fx, cam.fy, cam.cx, cam.cy)
     Jp = res.jac_point(pc, Rcw, cam.fx, cam.fy, cam.cx, cam.cy)
     chi2 = torch.sum(r * r, dim=-1) * p.e_info
-    w = p.e_mask * p.e_info * res.huber_weight(chi2, huber_delta)
+    hw = (res.huber_weight(chi2, huber_delta) if use_huber
+          else torch.ones_like(chi2))
+    w = p.e_mask * p.e_info * hw
     w = torch.where(pc[..., 2] <= 0.02, 0.0, w)
     Jc = Jc * p.cam_free[p.e_kf][:, None, None]
     Jp = Jp * p.pt_free[p.e_pt][:, None, None]
     return r, Jc, Jp, w
 
 
-def _marker_edge_terms(p: BAProblem, cam: Camera, huber_delta):
+def _marker_edge_terms(p: BAProblem, cam: Camera, huber_delta,
+                       use_huber=True):
     Rcw = p.Rcw[p.m_kf]
     cw = _marker_corners_world(p)
     r, pc = _reproj(Rcw, p.tcw[p.m_kf], cw, p.m_uv, cam)
     Jc = res.jac_pose(pc, cam.fx, cam.fy, cam.cx, cam.cy)
     Jm = res.jac_marker_world(pc, Rcw, cw, cam.fx, cam.fy, cam.cx, cam.cy)
     chi2 = torch.sum(r * r, dim=-1) * p.m_info
-    w = p.m_mask * p.m_info * res.huber_weight(chi2, huber_delta)
+    hw = (res.huber_weight(chi2, huber_delta) if use_huber
+          else torch.ones_like(chi2))
+    w = p.m_mask * p.m_info * hw
     w = torch.where(pc[..., 2] <= 0.02, 0.0, w)
     Jc = Jc * p.cam_free[p.m_kf][:, None, None]
     Jm = Jm * p.marker_free[p.m_marker][:, None, None]
@@ -350,7 +356,8 @@ def _cg_solve(lead: BAProblem, shards, lam, Hcc, Hmm, Hpp_inv, bc_red, bm,
             torch.where(torch.isfinite(x_m), x_m, 0.0))
 
 
-def _step(shards, cams, states, lam, huber_delta, use_cg, cg_iters):
+def _step(shards, cams, states, lam, huber_delta, use_huber, use_cg,
+          cg_iters):
     """One damped Gauss-Newton step of all free states (Schur complement,
     dense or CG) from the shards' copies of the state; the new state on the
     lead device."""
@@ -359,8 +366,10 @@ def _step(shards, cams, states, lam, huber_delta, use_cg, cg_iters):
     terms = []
     for p, cam, st in zip(shards, cams, states):
         pp = p._replace(**dict(zip(STATE, st)))
-        r_e, Jc_e, Jp_e, w_e = _point_edge_terms(pp, cam, huber_delta)
-        r_m, Jc_m, Jm_m, w_m = _marker_edge_terms(pp, cam, huber_delta)
+        r_e, Jc_e, Jp_e, w_e = _point_edge_terms(pp, cam, huber_delta,
+                                                 use_huber)
+        r_m, Jc_m, Jm_m, w_m = _marker_edge_terms(pp, cam, huber_delta,
+                                                  use_huber)
         terms.append(_Terms(pp, r_e, Jc_e, Jp_e, w_e, r_m, Jc_m, Jm_m, w_m,
                             _quad(Jc_e, w_e, Jp_e)))
     Rcw, tcw, points, Rwm, twm = states[0]
@@ -423,12 +432,14 @@ def _chi2(shards, cams, states):
 
 
 def ba_solve(p: BAProblem, cam: Camera, iters: int = 10,
-             huber_delta: float = 2.4477, lam0: float = 1e-4,
-             solver: str = "auto", cg_iters: int = 32,
+             huber_delta: float = 2.4477, use_huber: bool = True,
+             lam0: float = 1e-4, solver: str = "auto", cg_iters: int = 32,
              mesh=None) -> BAResult:
     """LM with the Schur complement: up to `iters` iterations, each step
     accepted only if it lowers the total chi2; stops (masks its updates)
-    after two iterations without a relative improvement of 1e-6. `solver`
+    after two iterations without a relative improvement of 1e-6. The
+    edges are Huber-weighted at huber_delta unless use_huber is False.
+    `solver`
     "dense" or "cg" picks the reduced system's solver, "auto" CG when the
     problem has more than DENSE_MAX_CAMS cameras.
 
@@ -453,7 +464,8 @@ def ba_solve(p: BAProblem, cam: Camera, iters: int = 10,
     stall = torch.zeros((), dtype=torch.int64, device=dev)
     for _ in range(iters):
         active = stall < 2
-        new = _step(shards, cams, states, lam, huber_delta, use_cg, cg_iters)
+        new = _step(shards, cams, states, lam, huber_delta, use_huber,
+                    use_cg, cg_iters)
         # the candidate's copies on the shards: the state's one copy per
         # LM iteration
         news = [new] + [tuple(x.to(d) for x in new) for d in devs[1:]]

@@ -2,9 +2,11 @@
 
 Port of orb_slam2_aruco_tpu/optim/lm.py (g2o OptimizationAlgorithmLevenberg,
 Thirdparty/g2o/g2o/core/optimization_algorithm_levenberg.cpp). The JAX
-package unrolls a Cholesky for small systems to keep XLA from emitting a
-custom call; here one batched `torch.linalg.solve_ex` (no host sync) does
-the 6x6 solve.
+package's solve_damped uses its unrolled Cholesky (small_spd_solve) for
+n <= 8 to keep XLA from emitting a custom call; here one batched
+`torch.linalg.solve_ex` (LU, no host sync) does the 6x6 solve, since in
+eager PyTorch the unrolled form is about a hundred small launches per
+solve. small_spd_solve is ported as a function of its own.
 """
 
 from __future__ import annotations
@@ -17,6 +19,36 @@ def diag_embed(d):
     """[..., n] -> [..., n, n] diagonal matrices."""
     return d[..., None] * torch.eye(d.shape[-1], dtype=d.dtype,
                                     device=d.device)
+
+
+def small_spd_solve(H, b):
+    """Unrolled Cholesky solve of small SPD systems (n <= ~8), batched over
+    leading dims: the JAX package's operations in its order (pivots
+    clamped at 1e-12 before the square root)."""
+    n = H.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = H[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                L[i][j] = torch.sqrt(torch.clamp(s, min=1e-12))
+            else:
+                L[i][j] = s / L[j][j]
+    y = [None] * n
+    for i in range(n):
+        s = b[..., i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x, dim=-1)
 
 
 def solve_damped(H, b, lam):

@@ -52,6 +52,14 @@ byte-equal):
 ref_video.npz: the real-footage sequence of tests/test_ingest.py's 25h7
 two-pass test as the JAX VideoSource decodes it, and the JAX
 examples/mono_video.py CLI's run over it.
+
+`add_dicts_reference` (`--dicts`) writes ref_dicts.npz: the JAX package's
+generated ArUco dictionaries (TPU_16h5 / ARUCO_MIP_16h3, TPU_36h12 and the
+25h7 regeneration), and its detect_markers on one bench-camera frame of a
+16h3 world and one of a TPU_36h12 world (`DICT_SCENES`). JAX's generator
+takes minutes for TPU_16h5 and longer for TPU_36h12 (pure-Python loops over
+200 000 tries), so the tests hold the port to this recording and never run
+it.
 """
 
 from __future__ import annotations
@@ -1211,12 +1219,98 @@ def add_video_reference(out_path=VIDEO_PATH):
           f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
+# the generated dictionaries' worlds: the bench world's layout (ref_full's
+# _full_setup) with ids below each table's size (TPU_16h5 holds 31 codes,
+# TPU_36h12 133), seen from one pose of the bench sweep with every marker
+# in view; detection at the bench's aruco settings (detect_downsample=2)
+DICT_SCENES = {
+    "ARUCO_MIP_16h3": [3, 17, 29, 9, 7, 23, 25, 14],
+    "TPU_36h12": [3, 17, 42, 99, 7, 23, 55, 88],
+}
+DICT_POSE = (0.9, 0.3, 2.0, 0.05, 0.04)
+# what each generator call of the JAX module is recorded as
+DICT_TABLES = {
+    "TPU_16h5": ("ARUCO_MIP_16h3",),
+    "TPU_36h12": ("TPU_36h12",),
+    "MIP_25h7": ("_generate_mip_style", ("ARUCO_MIP_25h7", 5, 100, 7),
+                 dict(seed=25)),
+}
+DICTS_PATH = os.path.join(DATA_DIR, "ref_dicts.npz")
+
+
+def add_dicts_reference(out_path=DICTS_PATH):
+    """Record ref_dicts.npz with the JAX package on the CPU: for each table
+    of DICT_TABLES its packed codes (np.packbits of the [K, nbits] bits),
+    grid and max_correction (`<table>_packed`, `_grid`, `_max_correction`);
+    for each world of DICT_SCENES the uint8 frame (`<dict>_frame`) and the
+    JAX detect_markers ids, corners and valid flags at the bench settings
+    with subpixel refinement (`<dict>_ids`, `_corners`, `_valid`). TPU_16h5
+    is recorded through get_dictionary("ARUCO_MIP_16h3"), the alias the
+    16h3 world uses: the registry generates the same table for each name,
+    so the recording runs the generator once."""
+    import time
+
+    import jax.numpy as jnp
+
+    from orb_slam2_aruco_tpu.io import synthetic as jsyn
+    from orb_slam2_aruco_tpu.ops.aruco import detector as jdet
+    from orb_slam2_aruco_tpu.ops.aruco import dictionary as jdict
+
+    t0 = time.perf_counter()
+    out = {}
+    for table, call in DICT_TABLES.items():
+        t1 = time.perf_counter()
+        if len(call) == 1:
+            d = jdict.get_dictionary(call[0])
+        else:
+            d = getattr(jdict, call[0])(*call[1], **call[2])
+        out[f"{table}_packed"] = np.packbits(d.codes, axis=1)
+        out[f"{table}_grid"] = np.asarray(d.grid, np.int32)
+        out[f"{table}_num_ids"] = np.asarray(d.num_ids, np.int32)
+        out[f"{table}_max_correction"] = np.asarray(d.max_correction,
+                                                    np.int32)
+        print(f"{table}: {d.num_ids} codes of {d.nbits} bits, "
+              f"max_correction {d.max_correction}, "
+              f"{time.perf_counter() - t1:.0f} s", flush=True)
+    jcfg, world_kw, _, _ = _full_setup()
+    acfg = jcfg.aruco
+    for dict_name, ids in DICT_SCENES.items():
+        if max(ids) >= jdict.get_dictionary(dict_name).num_ids:
+            raise ValueError(f"{dict_name}: ids {ids} beyond the table")
+        (img,), _ = render_frames(jsyn, dict(world_kw, marker_ids=ids),
+                                  jcfg.camera, [DICT_POSE], dict_name)
+        det = jdet.detect_markers(
+            jnp.asarray(img.astype(np.float32)), dict_name,
+            max_quads=acfg.max_quad_candidates,
+            adaptive_win=acfg.adaptive_thresh_win,
+            adaptive_c=acfg.adaptive_thresh_c,
+            min_area=acfg.min_quad_side_px**2, cell_px=acfg.warp_cell_px,
+            cc_iters=acfg.cc_iters, downsample=acfg.detect_downsample,
+            refine=True, use_pallas_cc=acfg.use_pallas_cc)
+        valid = np.asarray(det.valid)
+        found = sorted(int(i) for i in np.asarray(det.ids)[valid])
+        # every marker of the world decodes; a 16-bit code at distance 5
+        # may also be read off the texture, which the port must repeat
+        if not set(ids) <= set(found):
+            raise RuntimeError(f"{dict_name}: JAX decoded {found}, the "
+                               f"world holds {sorted(ids)}")
+        out[f"{dict_name}_frame"] = img
+        out[f"{dict_name}_ids"] = np.asarray(det.ids, np.int32)
+        out[f"{dict_name}_corners"] = np.asarray(det.corners, np.float32)
+        out[f"{dict_name}_valid"] = valid
+        print(f"{dict_name} world: JAX decoded {found}", flush=True)
+    np.savez_compressed(out_path, **out)
+    print(f"{out_path}: {os.path.getsize(out_path)} bytes, "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+
+
 if __name__ == "__main__":
-    modes = ("--regen", "--serving", "--slam", "--loop", "--pipe", "--video")
+    modes = ("--regen", "--serving", "--slam", "--loop", "--pipe", "--video",
+             "--dicts")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
                  "--regen|--serving|--slam|--loop|--pipe [small|full] | "
-                 "--video")
+                 "--video | --dicts")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
@@ -1233,6 +1327,8 @@ if __name__ == "__main__":
         add_pipe_reference(picked)
     elif "--video" in sys.argv:
         add_video_reference()
+    elif "--dicts" in sys.argv:
+        add_dicts_reference()
     else:
         add_loop_reference(picked)
 

@@ -154,12 +154,19 @@ def test_find_quads_native_equals_jax(tmp_path, monkeypatch, ref):
                             torch.as_tensor(qpad),
                             torch.arange(32) < len(quads), "ARUCO")
     assert {int(i) for i in det.ids if i >= 0} == {3, 17, 42, 99}
-    # without the committed library the binding says so and never builds it
+    # without the committed library the binding builds the source at first
+    # use (tests/test_torch_api.py); when that build fails it says so, with
+    # the compiler's error
     monkeypatch.setattr(tnative, "_LIB_PATH", str(tmp_path / "libquadfind.so"))
+    broken = tmp_path / "quadfind.cpp"
+    broken.write_text('#error "no quad finder here"\n')
+    monkeypatch.setattr(tnative, "_SRC_PATH", str(broken))
+    monkeypatch.setattr(tnative, "_BUILD_DIR", str(tmp_path / "build"))
     tnative._load.cache_clear()
     try:
         assert not tnative.available()
-        with pytest.raises(RuntimeError, match="unavailable"):
+        with pytest.raises(RuntimeError,
+                           match="unavailable(.|\n)*no quad finder here"):
             tnative.find_quads_native(img)
     finally:
         monkeypatch.undo()
