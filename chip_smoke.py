@@ -47,7 +47,27 @@ capacity), in phases:
               DEBUG_FRAMES frames, under torch's sync debug mode counts
               every synchronizing call the port makes: at most
               MAX_DEBUG_SYNCS.
-  7. slam     SLAM mode (tracking.pipeline_depth 0) from an empty map over
+  7. serve    the serving paths a user of the defaults takes, against the
+              JAX package's runs at full width (data/ref_full.npz, ref_tb_*
+              and ref_dstream_*): track_batch in its four modes (extrapolate
+              with 1 and 2 passes, scan two-stage, sequential) on one chunk
+              of 16 recorded frames from the recorded tracking state, OK
+              flags equal and poses within 0.2 deg / 1 cm, ms per chunk;
+              the default serving form, localize_stream(StagedSource(
+              frames, batch=16)) at its own chunk and depth with SlamConfig's
+              tracking serving knobs and ArUco route (scan, 2 passes,
+              two-stage, detect_downsample=1: K3 at 540x960 in every
+              frame) over 65 frames with a blank grey frame mid-chunk:
+              emitted ids, OK/None, rewinds and relocalizations equal to
+              JAX's, poses within 0.2 deg / 1 cm, K1, K2 and K3 once per
+              frame built (the rewind's replayed frames included, as many
+              as JAX built), fps, median chunk latency and host syncs; one
+              more chunk of SERVE_DEBUG_FRAMES under the sync debug mode, at
+              most MAX_SCAN_SYNCS calls, printed by site; and
+              track_monocular_batch: poses bit-equal to one track_batch
+              call from the same state, a chunk with a blank frame
+              relocalizing through the per-frame path.
+  8. slam     SLAM mode (tracking.pipeline_depth 0) from an empty map over
               the 32 frames of the sweep (SlamSystem.track_monocular: two-
               view initialization, tracking, keyframe inserts with the
               whole mapping phase and local BA). Every frame's state, the
@@ -64,7 +84,7 @@ capacity), in phases:
               classic (marker-free) two-view initialization: every
               synchronizing call by site, at most MAX_SLAM_SYNCS and
               MAX_CLASSIC_INIT_SYNCS.
-  8. pipe     pipelined SLAM mode at the bench's depth (pipeline_depth 4,
+  9. pipe     pipelined SLAM mode at the bench's depth (pipeline_depth 4,
               data/ref_full.npz's own configuration): bench.py's SLAM pass
               (bench.py:128-164) — a warm-up pass, then a timed pass over
               the 32 map frames through StagedSource(batch=4), per-call
@@ -76,7 +96,13 @@ capacity), in phases:
               the valid points and the ATE held to the JAX package's
               depth-4 run (ref_pipe_*, whose map is the file's map) within
               the SLAM limits; the depth-0 run to ref_slam_* as the slam
-              phase holds it. Then save_map, load_map into a new system and
+              phase holds it. Then the rewind run at depth 4
+              (ref_pipe_rewind_*: map frames 0-7, three black frames, 8-11,
+              reset_if_lost_with_kfs_leq = 0): states, inserts,
+              relocalized frames and keyframes equal to JAX's, poses within
+              the SLAM limits, the ATE at most max(1.5 x, +5 mm) of JAX's,
+              K1-K3 once per frame (the replayed frames are not rebuilt).
+              Then save_map, load_map into a new system and
               the 32 mid-point frames localized against it: states equal to
               ref_ok, poses within 0.5 deg / 2 cm of ref_R / ref_t. Then the
               32 frames at depth 4 under the sync debug mode: at most
@@ -84,7 +110,7 @@ capacity), in phases:
               example (examples/mono_synthetic.py: 40 frames, --two-pass,
               --save-map) must exit 0, write its TUM file and its map and
               print an ATE.
-  9. loop     SLAM mode with loop closing and relocalization at the same
+ 10. loop     SLAM mode with loop closing and relocalization at the same
               widths and capacities (data/ref_full.npz, ref_loop_*): the
               bench world's markers at the left of a long wall, a pan away
               and back with the map built after frame 18 rigidly displaced
@@ -108,7 +134,7 @@ capacity), in phases:
               ms per insert, per GBA slice and per loop correction, and the
               loop frame's ms; then the scene once more under the sync
               debug mode: at most MAX_LOOP_SYNCS calls, printed by site.
- 10. dist     the distributed global BA over device lists of the one card
+ 11. dist     the distributed global BA over device lists of the one card
               (every entry cuda:0: the cost of sharding, not scaling): on
               the problem of the first GBA slice of the loop phase's
               untimed sync-counting run (the map right after the loop
@@ -127,7 +153,7 @@ capacity), in phases:
               Then the loop scene again through SlamSystem with
               optim.distributed_gba over 4 entries: every GBA slice
               distributed, held to the JAX run as the loop phase holds it.
- 11. video    the real-footage CLI (examples/mono_video.py's `run`) over
+ 12. video    the real-footage CLI (examples/mono_video.py's `run`) over
               the recorded ARUCO_MIP_25h7 fly-by (data/ref_video.npz: 18
               frames at 480x360 as the JAX VideoSource decoded them from
               their MJPG file): --two-pass --chunk 6 --features 700, the
@@ -139,7 +165,7 @@ capacity), in phases:
               within 0.5 deg / 2 cm, ATE at most max(1.5 x, +5 mm) of
               JAX's and below 12 cm. Without cv2, VideoSource and
               ImageFolderSource must raise its ImportError.
- 12. api      the public per-frame functions and the generated ArUco
+ 13. api      the public per-frame functions and the generated ArUco
               dictionaries (data/ref_dicts.npz, recorded from the JAX
               package by tests/test_torch_slice.py --dicts): (a) the
               recorded ARUCO_MIP_16h3 and TPU_36h12 frames through
@@ -157,14 +183,15 @@ capacity), in phases:
               directory, its quads equal to the committed library's. Then
               solve_damped (LU) against small_spd_solve (Cholesky) and the
               ms per call of each entry point.
- 13. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+ 14. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
-Launch counts are zeroed just before each of slice, quads, stream, slam,
-pipe (its timed depth-4 pass), loop, dist (its system run), video and api
-and read just after: each must have launched the kernels of its path
-(K1-K3 on slice, stream, slam, pipe, loop, dist, video and api, K4 on
-quads), and K1, K2 and K3 once per frame built (api: exactly its count).
+Launch counts are zeroed just before each of slice, quads, stream, serve
+(its default-form stream), slam, pipe (its timed depth-4 pass), loop, dist
+(its system run), video and api and read just after: each must have
+launched the kernels of its path (K1-K3 on slice, stream, serve, slam,
+pipe, loop, dist, video and api, K4 on quads), and K1, K2 and K3 once per
+frame built (api: exactly its count).
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -241,6 +268,19 @@ MAX_LOOP_SYNCS = 419
 # detections) are tracking.HostCopy's event waits, which the debug mode
 # does not report; tracking.SYNCS counts them (PERF.md section 5)
 MAX_PIPE_SYNCS = 66
+# track_batch's modes: (loc_seed_mode, loc_extrap_passes, loc_two_stage)
+# (tests/test_torch_slice.py TB_MODES)
+TB_MODES = {
+    "extrap1": ("extrapolate", 1, True),
+    "extrap2": ("extrapolate", 2, True),
+    "two_stage": ("scan", 2, True),
+    "sequential": ("scan", 2, False),
+}
+# the serve phase's sync-debug chunk (the default form, scan two-stage) and
+# its synchronizing calls: the two branch reads of _cascade_seed per frame
+# and the chunk's control read
+SERVE_DEBUG_FRAMES = 16
+MAX_SCAN_SYNCS = 2 * SERVE_DEBUG_FRAMES + 1
 # the bench's SLAM pass: depth, frames per staged batch; the example's
 # frames
 PIPE_DEPTH, PIPE_BATCH = 4, 4
@@ -274,6 +314,7 @@ PATH_KERNELS = {
     "slice": ("fast", "patches", "cc_fused"),
     "quads": ("cc_propagate",),
     "stream": ("fast", "patches", "cc_fused"),
+    "serve": ("fast", "patches", "cc_fused"),
     "slam": ("fast", "patches", "cc_fused"),
     "pipe": ("fast", "patches", "cc_fused"),
     "loop": ("fast", "patches", "cc_fused"),
@@ -400,6 +441,95 @@ def check_frames_built(path, counts, frames):
                          f"launched K1 {counts['fast']}, K2 "
                          f"{counts['patches']} and K3 {counts['cc_fused']} "
                          f"times (one each per frame)")
+
+
+def as_numpy(x):
+    """A tensor (on any device), array or number as numpy."""
+    import numpy as np
+
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def hold_track_batch(ref, mode, ctrls, carry, min_matches):
+    """track_batch's control vectors [B, 20] and carry in `mode` against the
+    JAX package's (ref_tb_<mode>_*): every frame's OK flag (local-map
+    inliers >= min_matches) and the carry's equal, every frame's pose and
+    the carry's pose within ROT_TOL_DEG / TRANS_TOL_M. Returns (worst deg,
+    worst m); raises PhaseError otherwise."""
+    import numpy as np
+
+    c, cj = as_numpy(ctrls), ref[f"ref_tb_{mode}_ctrl"]
+    if c.shape != cj.shape:
+        raise PhaseError(f"track_batch {mode}: control vectors {c.shape}, "
+                         f"JAX's {cj.shape}")
+    ok, okj = c[:, 0] >= min_matches, cj[:, 0] >= min_matches
+    got_ok = bool(as_numpy(carry[4]))
+    if ok.tolist() != okj.tolist() or got_ok != bool(ref[f"ref_tb_{mode}_ok"]):
+        raise PhaseError(f"track_batch {mode}: OK flags {ok.tolist()} "
+                         f"(carry {got_ok}) vs JAX's {okj.tolist()} "
+                         f"(carry {bool(ref[f'ref_tb_{mode}_ok'])})")
+    poses = [(c[j, 5:14].reshape(3, 3), c[j, 14:17]) for j in range(len(c))]
+    poses.append((as_numpy(carry[0]), as_numpy(carry[1])))
+    worst_r, worst_t = pose_errors(
+        poses, np.concatenate([cj[:, 5:14].reshape(-1, 3, 3),
+                               ref[f"ref_tb_{mode}_R"][None]]),
+        np.concatenate([cj[:, 14:17], ref[f"ref_tb_{mode}_t"][None]]))
+    if worst_r > ROT_TOL_DEG or worst_t > TRANS_TOL_M:
+        raise PhaseError(f"track_batch {mode}: poses off JAX's by "
+                         f"{worst_r:.4f} deg / {worst_t * 100:.4f} cm")
+    return worst_r, worst_t
+
+
+def hold_stream(ref, pre, out, stats, rewinds):
+    """A localize_stream run's emitted [(frame id, pose or None)], its stats
+    and rewind count against the JAX package's recorded stream
+    (ref[pre + ...]): frame ids, OK/None and stats["reloc"] equal, the
+    rewinds equal to `rewinds` (JAX's), poses within ROT_TOL_DEG /
+    TRANS_TOL_M. Returns (worst deg, worst m); raises PhaseError
+    otherwise."""
+    fids = [f for f, _ in out]
+    if fids != ref[pre + "fid"].tolist():
+        raise PhaseError(f"{pre}: emitted frames {fids} vs JAX's "
+                         f"{ref[pre + 'fid'].tolist()}")
+    ok = [p is not None for _, p in out]
+    if ok != ref[pre + "ok"].tolist():
+        raise PhaseError(f"{pre}: OK/None differ from JAX's at "
+                         f"{[j for j, o in enumerate(ok) if o != ref[pre + 'ok'][j]]}")
+    if (stats["rewinds"], stats["reloc"]) != (rewinds,
+                                              int(ref[pre + "reloc"])):
+        raise PhaseError(f"{pre}: {stats['rewinds']} rewinds and "
+                         f"{stats['reloc']} relocalizations vs JAX's "
+                         f"{rewinds} and {int(ref[pre + 'reloc'])}")
+    worst_r, worst_t = pose_errors([p for _, p in out], ref[pre + "R"],
+                                   ref[pre + "t"])
+    if worst_r > ROT_TOL_DEG or worst_t > TRANS_TOL_M:
+        raise PhaseError(f"{pre}: poses off JAX's by {worst_r:.4f} deg / "
+                         f"{worst_t * 100:.4f} cm")
+    return worst_r, worst_t
+
+
+def hold_monocular_batch(ctrls, poses, blank_poses, reloc):
+    """SlamSystem.track_monocular_batch against one track_batch call from
+    the same state: its poses equal the control vectors' bit for bit; and
+    its chunk (frame, blank, frame, frame) sends the blank and the rest of
+    the chunk through the per-frame path, which relocalizes at the next
+    frame: OK [True, False, True, True], stats["reloc"] 2 (the map's first
+    frame and that one)."""
+    import numpy as np
+
+    c = as_numpy(ctrls)
+    for j, (R, t) in enumerate(poses):
+        if not (np.array_equal(as_numpy(R), c[j, 5:14].reshape(3, 3))
+                and np.array_equal(as_numpy(t), c[j, 14:17])):
+            raise PhaseError(f"track_monocular_batch: frame {j}'s pose is "
+                             f"not track_batch's")
+    ok = [p is not None for p in blank_poses]
+    if ok != [True, False, True, True] or reloc != 2:
+        raise PhaseError(f"track_monocular_batch with a blank frame: OK "
+                         f"{ok}, {reloc} relocalizations (want [True, "
+                         f"False, True, True] and 2)")
 
 
 def rot_err_deg(Ra, Rb):
@@ -872,9 +1002,9 @@ def stream_phase(path, cfg, ref, imgs):
     spec = json.loads(str(ref["ref_stream_spec"]))
     order = [int(k) for k in ref["ref_stream_order"]]
     chunk, depth = spec["chunk"], spec["depth"]
-    scfg = cfg.replace(tracking=dataclasses.replace(
-        cfg.tracking, loc_seed_mode=spec["loc_seed_mode"],
-        loc_extrap_passes=spec["loc_extrap_passes"]))
+    scfg = serving_config(cfg, spec["loc_seed_mode"],
+                          spec["loc_extrap_passes"],
+                          cfg.tracking.loc_two_stage)
     blank = np.full(imgs[0].shape, 128, np.uint8)
     frames = [(blank if k < 0 else imgs[k], 1.0 + j / 30.0)
               for j, k in enumerate(order)]
@@ -945,6 +1075,243 @@ def stream_phase(path, cfg, ref, imgs):
     if n_sync > MAX_DEBUG_SYNCS:
         raise PhaseError(f"{n_sync} synchronizing calls in the debug chunk, "
                          f"above {MAX_DEBUG_SYNCS}")
+    return counts
+
+
+def default_stream_spec():
+    """The port's default serving form: localize_stream's own chunk and
+    depth, SlamConfig's tracking serving knobs and ArUco downsample (the
+    recorder's `default_stream_spec` on the JAX package gives the same)."""
+    import inspect
+
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    d = SlamConfig()
+    sig = inspect.signature(SlamSystem.localize_stream).parameters
+    return dict(chunk=sig["chunk"].default, depth=sig["depth"].default,
+                loc_seed_mode=d.tracking.loc_seed_mode,
+                loc_extrap_passes=d.tracking.loc_extrap_passes,
+                loc_two_stage=d.tracking.loc_two_stage,
+                detect_downsample=d.aruco.detect_downsample)
+
+
+def serving_config(cfg, seed_mode, passes, two_stage, downsample=None):
+    """`cfg` with the localization serving knobs (and ArUco downsample)."""
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, loc_seed_mode=seed_mode, loc_extrap_passes=passes,
+        loc_two_stage=two_stage))
+    if downsample is not None:
+        cfg = cfg.replace(aruco=dataclasses.replace(
+            cfg.aruco, detect_downsample=downsample))
+    return cfg
+
+
+def tb_inputs(ref, device):
+    """track_batch's recorded inputs (ref_tb_in_*) as tensors on
+    `device`, in the port's dtypes."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for k in ("R_last", "t_last", "vel_R", "vel_t", "last_uv", "last_desc",
+              "last_obs", "last_valid", "last_octave", "last_angle",
+              "ref_kf", "pt_visible", "pt_found"):
+        v = np.array(ref[f"ref_tb_in_{k}"])
+        if k == "last_desc":
+            v = v.view(np.int32)
+        t = torch.as_tensor(v)
+        if k in ("last_obs", "last_octave", "ref_kf"):
+            t = t.to(torch.int64)
+        out[k] = t.to(device)
+    return out
+
+
+def run_track_batch(path, cfg, ref, imgs, mode, device):
+    """track_batch in `mode` (TB_MODES) on the recorded chunk (reference
+    frames 2 on) from the recorded inputs: (ctrls, carry, ms, host
+    syncs)."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch.geometry import camera
+    from orb_slam2_aruco_tpu_torch.io import checkpoint
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+
+    ins = tb_inputs(ref, device)
+    state = checkpoint.load_map(path, device=device)._replace(
+        pt_visible=ins["pt_visible"], pt_found=ins["pt_found"])
+    n = ref[f"ref_tb_{mode}_ctrl"].shape[0]
+    stack = torch.as_tensor(np.stack(imgs[2:2 + n])).to(device)
+    cam = camera.camera_from_config(cfg.camera, device=device)
+    mcfg = serving_config(cfg, *TB_MODES[mode])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    tracking.SYNCS["count"] = 0
+    t0 = time.perf_counter()
+    ctrls, carry = tracking.track_batch(
+        state, stack, ins["R_last"], ins["t_last"], ins["vel_R"],
+        ins["vel_t"], torch.tensor(True, device=device), ins["last_uv"],
+        ins["last_desc"], ins["last_obs"], ins["last_valid"],
+        ins["last_octave"], ins["last_angle"], ins["ref_kf"], cam, mcfg)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return (ctrls, carry, (time.perf_counter() - t0) * 1e3,
+            tracking.SYNCS["count"])
+
+
+def count_frames_built(system):
+    """Wrap a SlamSystem's chunk dispatch and per-frame call to count the
+    frames they build: returns a dict {"chunk": frames of every chunk
+    dispatched, "frame": per-frame calls, "frame_s": their wall time}."""
+    n = {"chunk": 0, "frame": 0, "frame_s": 0.0}
+    run_chunk, track_one = system._run_chunk, system.track_monocular
+
+    def chunk(stack):
+        n["chunk"] += stack.shape[0]
+        return run_chunk(stack)
+
+    def one(img, ts):
+        n["frame"] += 1
+        t0 = time.perf_counter()
+        out = track_one(img, ts)
+        n["frame_s"] += time.perf_counter() - t0
+        return out
+
+    system._run_chunk, system.track_monocular = chunk, one
+    return n
+
+
+def serve_phase(path, cfg, ref, imgs):
+    """track_batch in its four modes, the default serving form with its
+    rewind, and track_monocular_batch, against the JAX package's runs.
+    Returns the kernel launch counts of the default-form stream."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu_torch.pipeline import tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import (
+        SlamSystem,
+        TrackingState,
+    )
+
+    min_m = cfg.tracking.min_matches_local_map
+    for mode in TB_MODES:
+        ctrls, carry, ms, syncs = run_track_batch(path, cfg, ref, imgs, mode,
+                                                  DEVICE)
+        worst_r, worst_t = hold_track_batch(ref, mode, ctrls, carry, min_m)
+        phase("serve", f"track_batch {mode} {TB_MODES[mode]}, one chunk of "
+              f"{len(ctrls)}: OK flags equal to JAX's, poses within "
+              f"{worst_r:.5f} deg / {worst_t * 100:.5f} cm; {ms:.1f} ms per "
+              f"chunk ({ms / len(ctrls):.1f} per frame); host syncs {syncs}")
+
+    # the default serving form, its rewind included
+    spec = json.loads(str(ref["ref_dstream_spec"]))
+    if spec != default_stream_spec():
+        raise PhaseError(f"ref_dstream_spec {spec} is not the port's "
+                         f"default serving form {default_stream_spec()}")
+    dcfg = serving_config(cfg, spec["loc_seed_mode"],
+                          spec["loc_extrap_passes"], spec["loc_two_stage"],
+                          spec["detect_downsample"])
+    blank = np.full(imgs[0].shape, 128, np.uint8)
+    frames = [(blank if k < 0 else imgs[k], 1.0 + j / 30.0)
+              for j, k in enumerate(ref["ref_dstream_order"].tolist())]
+    system = SlamSystem(dcfg, device=DEVICE)
+    system.load_map(path)
+    system.track_monocular(imgs[0], ts=0.0)
+    if system.state is not TrackingState.OK:
+        raise PhaseError("the default form's first frame did not relocalize")
+    built = count_frames_built(system)
+    chunk = spec["chunk"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.SYNCS["count"] = 0
+    emit_t, out = [], []
+    t0 = time.perf_counter()
+    for fid, _, p in system.localize_stream(
+            StagedSource(frames, batch=chunk, device=DEVICE)):
+        emit_t.append(time.perf_counter() - t0)
+        out.append((fid, p))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    syncs = tracking.SYNCS["count"]
+    phase("serve", f"kernel launches in the default-form stream: {counts}")
+    check_launches("serve", counts)
+    n_built = built["chunk"] + built["frame"]
+    if n_built != int(ref["ref_dstream_built"]):
+        raise PhaseError(f"the default-form stream built {n_built} frames, "
+                         f"JAX's {int(ref['ref_dstream_built'])}")
+    check_frames_built("serve", counts, n_built)
+    worst_r, worst_t = hold_stream(ref, "ref_dstream_", out, system.stats,
+                                   int(ref["ref_dstream_rewinds"]))
+    n, chunks = len(out), system.stats["chunks"]
+    bursts = [emit_t[0]] + [emit_t[k] - emit_t[k - chunk]
+                            for k in range(chunk, n, chunk)]
+    phase("serve", f"default form (localize_stream() at its defaults, "
+          f"{spec}): {n} frames emitted, {sum(p is not None for _, p in out)}"
+          f" OK, ids and OK/None equal to JAX's; {system.stats['rewinds']} "
+          f"rewinds and {system.stats['reloc']} relocalizations (= JAX); "
+          f"poses within {worst_r:.5f} deg / {worst_t * 100:.5f} cm of JAX; "
+          f"frames built {n_built} = {len(frames)} + {n_built - len(frames)}"
+          f" rebuilt after the rewind ({built['chunk']} in chunks, "
+          f"{built['frame']} per frame), K1 = K2 = K3 = {n_built} (= JAX's "
+          f"frames built)")
+    phase("serve", f"default form: {n / dt:.2f} fps over {n} frames "
+          f"({dt:.2f} s); median chunk latency "
+          f"{statistics.median(bursts) * 1000:.1f} ms (bursts "
+          f"{[round(b * 1000, 1) for b in bursts]} ms); host syncs {syncs} "
+          f"over {chunks} chunks and {built['frame']} per-frame calls "
+          f"({syncs / max(chunks, 1):.2f} per chunk); the "
+          f"rewind: {n_built - len(frames)} frames built again "
+          f"({(n_built - len(frames)) / len(frames):.0%} more than emitted) "
+          f"and {built['frame']} per-frame calls in "
+          f"{built['frame_s'] * 1000:.1f} ms")
+
+    # every synchronizing call of one more default-form chunk (not timed)
+    src = StagedSource(frames[:SERVE_DEBUG_FRAMES], batch=SERVE_DEBUG_FRAMES,
+                       device=DEVICE)
+    tracking.SYNCS["count"] = 0
+    n_sync, where = port_sync_calls(lambda: list(system.localize_stream(
+        src, chunk=SERVE_DEBUG_FRAMES)))
+    phase("serve", f"sync debug mode, one default-form chunk of "
+          f"{SERVE_DEBUG_FRAMES}: {n_sync} synchronizing calls "
+          f"({n_sync / SERVE_DEBUG_FRAMES:.2f} per frame; deliberate host "
+          f"reads {tracking.SYNCS['count']}); by site: {sites(where)}")
+    if n_sync > MAX_SCAN_SYNCS:
+        raise PhaseError(f"{n_sync} synchronizing calls in the default-form "
+                         f"debug chunk, above {MAX_SCAN_SYNCS}")
+
+    # the facade's chunk call against one track_batch call
+    mono = SlamSystem(dcfg, device=DEVICE)
+    mono.load_map(path)
+    for i in range(2):
+        mono.track_monocular(imgs[i], ts=i / 30.0)
+    lf = mono.last_frame
+    stack = torch.as_tensor(np.stack(imgs[2:6])).to(DEVICE)
+    ctrls, _ = tracking.track_batch(
+        mono.map, stack, *mono.last_pose, *mono.vel,
+        torch.tensor(True, device=DEVICE), lf.kp_uv, lf.desc, mono.last_obs,
+        lf.kp_valid, lf.kp_octave, lf.kp_angle,
+        torch.tensor(mono.ref_kf, device=DEVICE), mono.cam, dcfg)
+    t0 = time.perf_counter()
+    poses = mono.track_monocular_batch(imgs[2:6], [0.1, 0.2, 0.3, 0.4])
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    blank_poses = mono.track_monocular_batch(
+        [imgs[6], blank, imgs[7], imgs[6]], [0.5, 0.6, 0.7, 0.8])
+    rewind_ms = (time.perf_counter() - t0) * 1e3
+    hold_monocular_batch(ctrls, poses, blank_poses, mono.stats["reloc"])
+    if [r.frame_id for r in mono.get_trajectory()] != list(range(10)):
+        raise PhaseError("track_monocular_batch: trajectory records out of "
+                         "order")
+    phase("serve", f"track_monocular_batch: 4 frames in {batch_ms:.1f} ms, "
+          f"poses bit-equal to one track_batch call; the chunk with a blank "
+          f"frame {rewind_ms:.1f} ms: OK [True, False, True, True], "
+          f"{mono.stats['reloc']} relocalizations, "
+          f"{mono.stats['rewinds']} rewind")
     return counts
 
 
@@ -1262,6 +1629,103 @@ def hold_slam_run(label, system, records, ref, pre):
             f"{limit * 1000:.3f} mm)")
 
 
+def pipe_rewind_phase(cfg, ref, frames):
+    """The rewind run at the bench's depth: ref_pipe_rewind_order's frames
+    (map frames, -1 = black) with reset_if_lost_with_kfs_leq = 0 on a
+    fresh system, then flush. Its records (frame ids, states), the frames
+    whose processing created keyframes, the relocalized frames and the
+    keyframes equal to the JAX package's run (ref_pipe_rewind_*), OK poses
+    and keyframe poses within the SLAM limits, ATE at most max(1.5 x,
+    +5 mm) of JAX's; every frame built once (K1, K2, K3), the replayed
+    frames included."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.io import trajectory
+    from orb_slam2_aruco_tpu_torch.pipeline import mapping, tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    pre = "ref_pipe_rewind_"
+    order = ref[pre + "order"].tolist()
+    rcfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, reset_if_lost_with_kfs_leq=0))
+    black = np.zeros_like(frames[0])
+    imgs = [black if k < 0 else frames[k] for k in order]
+    system = SlamSystem(rcfg, device=DEVICE)
+    inserts, relocs = [], []
+    real_create, real_reloc = mapping.create_keyframe, SlamSystem._relocalize
+
+    def create(*a, **kw):
+        inserts.append(int(a[6]))
+        return real_create(*a, **kw)
+
+    def relocalize(self, frame, fid, ts):
+        before = self.stats["reloc"]
+        out = real_reloc(self, frame, fid, ts)
+        if self.stats["reloc"] > before:
+            relocs.append(fid)
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.SYNCS["count"] = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(mapping, "create_keyframe", create), \
+            mock.patch.object(SlamSystem, "_relocalize", relocalize):
+        for j, img in enumerate(imgs):
+            system.track_monocular(img, ts=j / 30.0)
+        system.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        recs = system.get_trajectory()
+    counts = dict(kernels.launch_counts)
+    check_frames_built("pipe", counts, len(imgs))
+    fids = [r.frame_id for r in recs]
+    states = [r.state.value for r in recs]
+    kf_fid, _, kf_R, kf_t = system.keyframe_trajectory()
+    got = dict(fid=fids, state=states, inserts=inserts, reloc_fid=relocs,
+               kf_fid=kf_fid.tolist())
+    for k, v in got.items():
+        if v != ref[pre + k].tolist():
+            raise PhaseError(f"rewind run: {k} {v} vs JAX's "
+                             f"{ref[pre + k].tolist()}")
+    poses = [(r.Rcw, r.tcw) if r.state.value == 2 else None for r in recs]
+    worst_r, worst_t = pose_errors(poses, ref[pre + "R"], ref[pre + "t"])
+    kf_r, kf_tr = pose_errors(list(zip(kf_R, kf_t)), ref[pre + "kf_R"],
+                              ref[pre + "kf_t"])
+    if max(worst_r, kf_r) > SLAM_ROT_TOL_DEG or max(
+            worst_t, kf_tr) > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"rewind run: poses off the JAX run: frames "
+                         f"{worst_r:.4f} deg / {worst_t * 100:.4f} cm, "
+                         f"keyframes {kf_r:.4f} deg / {kf_tr * 100:.4f} cm")
+    ok = [i for i, r in enumerate(recs) if r.state.value == 2
+          and order[r.frame_id] >= 0]
+    gt = [order[recs[i].frame_id] for i in ok]
+    ate = trajectory.ate_rmse(
+        trajectory.camera_centers([recs[i].Rcw for i in ok],
+                                  [recs[i].tcw for i in ok]),
+        trajectory.camera_centers(ref["ref_slam_gt_R"][gt],
+                                  ref["ref_slam_gt_t"][gt]),
+        align=True, with_scale=False)
+    ref_ate = float(ref[pre + "ate"])
+    limit = max(1.5 * ref_ate, ref_ate + 0.005)
+    if not np.isfinite(ate) or ate > limit:
+        raise PhaseError(f"rewind run: ATE {ate:.5f} m above {limit:.5f} m")
+    phase("pipe", f"rewind run at depth {cfg.tracking.pipeline_depth} "
+          f"(order {order}): states {states}, inserts {inserts}, "
+          f"relocalized {relocs}, keyframes {kf_fid.tolist()} (= JAX); "
+          f"frame poses within {worst_r:.5f} deg / {worst_t * 100:.5f} cm, "
+          f"keyframe poses within {kf_r:.5f} deg / {kf_tr * 100:.5f} cm of "
+          f"JAX; ATE {ate * 1000:.3f} mm (JAX {ref_ate * 1000:.3f} mm, limit "
+          f"{limit * 1000:.3f} mm); K1 = K2 = K3 = {len(imgs)}, one per "
+          f"frame; {len(imgs)} frames and the flush in {dt:.2f} s "
+          f"({len(imgs) / dt:.2f} fps); host syncs "
+          f"{tracking.SYNCS['count']}; stats {system.stats}")
+
+
 def pipe_phase(cfg, ref, loc_imgs):
     """Pipelined SLAM mode: bench.py's SLAM pass at depth 4 and at depth 0
     on the same frames, held to the JAX runs; save, reload and localize;
@@ -1315,6 +1779,7 @@ def pipe_phase(cfg, ref, loc_imgs):
     summary0 = hold_slam_run("depth 0", system0, records0, ref, "ref_slam_")
     phase("pipe", f"depth 0, the same frames: inserts at {got_ins} (= JAX);"
           f" {summary0}")
+    pipe_rewind_phase(cfg, ref, frames)
     for label, m in ((f"depth {PIPE_DEPTH} (warm-up pass)", warm),
                      (f"depth {PIPE_DEPTH}", m4), ("depth 0", m0)):
         phase("pipe", f"bench SLAM pass, {label}: slam_fps "
@@ -2348,6 +2813,7 @@ def main() -> int:
         by_path = {"slice": slice_phase(path, cfg, ref, imgs),
                    "quads": quads_phase(cfg, ref, imgs),
                    "stream": stream_phase(path, cfg, ref, imgs),
+                   "serve": serve_phase(path, cfg, ref, imgs),
                    "slam": slam_phase(cfg, ref, imgs),
                    "pipe": pipe_phase(cfg, ref, imgs)}
         by_path["loop"], gba_input = loop_phase()

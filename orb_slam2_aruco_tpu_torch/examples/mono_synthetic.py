@@ -11,7 +11,7 @@ writes the top-down map view as a PNG (viz/framedrawer.py).
 
     python -m orb_slam2_aruco_tpu_torch.examples.mono_synthetic \\
         --frames 40 --out traj.tum [--two-pass] [--save-map map.npz] \\
-        [--save-views DIR] [--device cpu]
+        [--save-views DIR] [--device cpu | --cpu]
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def make_world(dict_name: str, marker_size: float):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40)
-    ap.add_argument("--out", type=str, default="trajectory.tum")
+    ap.add_argument("--out", type=str, default="/tmp/trajectory.tum")
     ap.add_argument("--dict", type=str, default="ARUCO")
     ap.add_argument("--marker-size", type=float, default=0.165)
     ap.add_argument("--width", type=int, default=960)
@@ -66,11 +66,15 @@ def main(argv=None):
                     help="directory for the map view PNG")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (the card unless told otherwise)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the same as --device cpu)")
     ap.add_argument("--trace", type=str, default="",
                     help="torch.profiler trace dir (Chrome trace, Perfetto)")
     ap.add_argument("--chunk", type=int, default=8,
                     help="frames per track_batch call in the second pass")
     args = ap.parse_args(argv)
+    if args.cpu:
+        args.device = "cpu"
 
     from orb_slam2_aruco_tpu_torch.config import CameraConfig, SlamConfig
     from orb_slam2_aruco_tpu_torch.io import synthetic, trajectory

@@ -20,7 +20,7 @@ of (gray uint8 [H, W], ts) and needs none.
 
     python -m orb_slam2_aruco_tpu_torch.examples.mono_video \\
         --video seq.mp4 --camera calib.yml --dict ARUCO --marker-size 0.165 \\
-        --out traj.tum [--two-pass] [--viewer 0] [--device cpu]
+        --out traj.tum [--two-pass] [--viewer 0] [--device cpu | --cpu]
     python -m orb_slam2_aruco_tpu_torch.examples.mono_video \\
         --images dir/ --times times.txt --camera calib.yml \\
         --dict ARUCO_MIP_36h12 --width 1280 --height 720
@@ -78,7 +78,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "format: one stem per line, ts = stem/1e6)")
     ap.add_argument("--camera", type=str, required=True,
                     help="OpenCV calibration yml or ORB-SLAM yml")
-    ap.add_argument("--out", type=str, default="trajectory.tum")
+    ap.add_argument("--out", type=str, default="/tmp/trajectory.tum")
     ap.add_argument("--kf-out", type=str, default="",
                     help="keyframe trajectory TUM path")
     ap.add_argument("--dict", type=str, default="ARUCO")
@@ -103,7 +103,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(0 = auto-pick; open http://127.0.0.1:PORT)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (the card unless told otherwise)")
-    return ap.parse_args(argv)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the same as --device cpu)")
+    args = ap.parse_args(argv)
+    if args.cpu:
+        args.device = "cpu"
+    return args
 
 
 def load_camera(args):

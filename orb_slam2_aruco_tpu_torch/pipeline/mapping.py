@@ -34,13 +34,17 @@ from orb_slam2_aruco_tpu_torch.ops.topk import stable_topk
 from orb_slam2_aruco_tpu_torch.optim import ba
 from orb_slam2_aruco_tpu_torch.parallel import dist_ba
 from orb_slam2_aruco_tpu_torch.pipeline.frontend import Frame, scale_sigma2
-from orb_slam2_aruco_tpu_torch.pipeline.tracking import mark, row
+from orb_slam2_aruco_tpu_torch.pipeline.tracking import host_read, mark, row
 from orb_slam2_aruco_tpu_torch.utils import threefry
 from orb_slam2_aruco_tpu_torch.utils.consts import const
 from orb_slam2_aruco_tpu_torch.worldmap.covisibility import (
     covisibility_matrix,
 )
-from orb_slam2_aruco_tpu_torch.worldmap.state import MapState, free_slots
+from orb_slam2_aruco_tpu_torch.worldmap.state import (
+    MapState,
+    first_free_slot,
+    free_slots,
+)
 
 # plane hypotheses per marker in aruco_plane_update (mapping.py:1007)
 PLANE_HYPOTHESES = 16
@@ -93,11 +97,14 @@ def _centers(R, t):
 
 def create_keyframe(state: MapState, frame: Frame, Rcw, tcw, obs_point,
                     slots, frame_id: int, ts: float, cam: Camera,
-                    cfg: SlamConfig, mk_old=None, slot: int = 0):
+                    cfg: SlamConfig, mk_old=None, slot=None):
     """Insert the frame as keyframe `slot` and create MapAruco entries for
     its new good markers, Twm = Twc * Tcm (CreateNewKeyFrame,
-    Tracking.cc:1394-1460). Returns (state, slot)."""
-    k = int(slot)
+    Tracking.cc:1394-1460). Returns (state, slot). `slot` None takes the
+    first free slot, one host read (counted in tracking.SYNCS); the system
+    passes the slot from its host mirror of kf_valid."""
+    k = int(slot if slot is not None
+            else host_read(first_free_slot(state.kf_valid)))
     A = slots.shape[0]
     M, L = state.M, state.L
     new_mk = frame.mk_valid & frame.mk_good & (slots < 0)

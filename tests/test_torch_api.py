@@ -27,6 +27,7 @@ import ast
 import dataclasses
 import filecmp
 import os
+import re
 import subprocess
 import sys
 
@@ -614,14 +615,32 @@ DEPARTURES = {
 }
 
 
+# the port's default values that depart from JAX's by design (ROADMAP.md
+# C1): dtype defaults equal in value, float32 where JAX picks bf16 for the
+# MXU (their values are +-1 and 0/1, exact in both)
+DEFAULT_DEPARTURES = {
+    "ops/orb.py: unpack_pm1(dtype)",
+    "worldmap/covisibility.py: incidence_matrix(dtype)",
+}
+
+
 def _params(fn):
+    """{parameter: its default as source text, None where it has none}."""
     a = fn.args
-    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    pos = a.posonlyargs + a.args
+    out = dict.fromkeys(x.arg for x in pos + a.kwonlyargs)
+    for x, d in zip(pos[len(pos) - len(a.defaults):], a.defaults):
+        out[x.arg] = ast.unparse(d)
+    for x, d in zip(a.kwonlyargs, a.kw_defaults):
+        if d is not None:
+            out[x.arg] = ast.unparse(d)
+    return out
 
 
 def _public_defs(path):
-    """{name: parameters or None} of a module's public top-level functions,
-    classes, class methods and fields, and assignments."""
+    """{name: {parameter: default} or None} of a module's public top-level
+    functions, classes, class methods and fields, and assignments; a
+    class field with a default is {"": its default}."""
     out = {}
     for node in ast.parse(open(path).read()).body:
         if isinstance(node, ast.FunctionDef):
@@ -633,7 +652,9 @@ def _public_defs(path):
                     out[f"{node.name}.{m.name}"] = _params(m)
                 elif (isinstance(m, ast.AnnAssign)
                       and isinstance(m.target, ast.Name)):
-                    out[f"{node.name}.{m.target.id}"] = None
+                    out[f"{node.name}.{m.target.id}"] = (
+                        None if m.value is None
+                        else {"": ast.unparse(m.value)})
         elif isinstance(node, ast.Assign):
             for tg in node.targets:
                 if isinstance(tg, ast.Name):
@@ -674,7 +695,7 @@ def missing_names():
                     out.append(f"{rel}: {name}")
                     continue
                 for p in params or []:
-                    if p not in (mine[name] or []) and (
+                    if p and p not in (mine[name] or []) and (
                             f"{rel}: {name}({p})" not in DEPARTURES):
                         out.append(f"{rel}: {name}({p})")
             if f == "__init__.py":
@@ -685,12 +706,89 @@ def missing_names():
     return sorted(out)
 
 
+def _as_torch(src):
+    """A default's source text with JAX's dtype names as torch's
+    (jnp.float32 -> torch.float32, jnp.bfloat16 -> torch.bfloat16, ...)."""
+    return None if src is None else re.sub(r"\bjnp\.", "torch.", src)
+
+
+def differing_defaults():
+    """Every parameter default and class-field default of a JAX module that
+    its port module gives another value (a port parameter without the
+    JAX default, or with one JAX lacks, differs too), departures
+    excepted."""
+    out = []
+    for root, _, files in os.walk(JAX_PKG):
+        for f in sorted(files):
+            rel = os.path.relpath(os.path.join(root, f), JAX_PKG)
+            port = os.path.join(PORT_PKG, rel)
+            if not f.endswith(".py") or not os.path.exists(port):
+                continue
+            mine = _public_defs(port)
+            for name, params in _public_defs(os.path.join(JAX_PKG,
+                                                          rel)).items():
+                if name not in mine:
+                    continue
+                for p, want in (params or {}).items():
+                    # a parameter the port lacks is missing_names' finding;
+                    # a field default it lacks is a differing default
+                    got = (mine[name] or {}).get(p, want if p else None)
+                    key = f"{rel}: {name}({p})" if p else f"{rel}: {name}"
+                    if (_as_torch(got) != _as_torch(want)
+                            and key not in DEFAULT_DEPARTURES):
+                        out.append(f"{key}: JAX {want}, port {got}")
+    return sorted(out)
+
+
+def cli_arguments(path):
+    """{flag: its argparse default as source text, None where it has none}
+    of every add_argument call in a CLI's source."""
+    out = {}
+    for node in ast.walk(ast.parse(open(path).read())):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            flag = [a.value for a in node.args
+                    if isinstance(a, ast.Constant)][-1]
+            kw = {k.arg: ast.unparse(k.value) for k in node.keywords}
+            out[flag] = kw.get("default")
+    return out
+
+
 def test_the_port_has_every_public_name_of_the_jax_package():
     assert missing_names() == []
 
 
+def test_the_ports_defaults_are_the_jax_packages():
+    """Every parameter default and config field default equal to JAX's
+    (dtypes mapped jnp -> torch), DEFAULT_DEPARTURES excepted; each
+    departure still has a default of its own, equal in value."""
+    assert differing_defaults() == []
+    for key in DEFAULT_DEPARTURES:
+        rel, call = key.split(": ")
+        name, p = call[:-1].split("(")
+        want = _public_defs(os.path.join(JAX_PKG, rel))[name][p]
+        got = _public_defs(os.path.join(PORT_PKG, rel))[name][p]
+        assert (want, got) == ("jnp.bfloat16", "torch.float32"), key
+    assert _public_defs(os.path.join(
+        PORT_PKG, "pipeline", "mapping.py"))["create_keyframe"]["slot"] == (
+            "None")
+
+
+@pytest.mark.parametrize("cli", ["mono_synthetic.py", "mono_video.py"])
+def test_the_port_clis_take_the_jax_clis_arguments_and_defaults(cli):
+    """Every flag of the JAX example (root examples/) is a flag of the
+    port's, with the same default (--out: /tmp/trajectory.tum; --cpu is
+    the port's --device cpu); the port adds only --device."""
+    want = cli_arguments(os.path.join(REPO, "examples", cli))
+    got = cli_arguments(os.path.join(PORT_PKG, "examples", cli))
+    assert {k: got.get(k, "absent") for k in want} == want
+    assert set(got) - set(want) == {"--device"}
+    assert want["--out"] == "'/tmp/trajectory.tum'"
+
+
 if __name__ == "__main__":
     # prints every public name or parameter of the JAX package the port
-    # lacks (nothing when it lacks none)
-    for line in missing_names():
+    # lacks and every default it gives another value (nothing when there
+    # is none)
+    for line in missing_names() + differing_defaults():
         print(line)

@@ -432,6 +432,33 @@ def _inserted(ctx):
     return jm2, tm2, slot
 
 
+def test_create_keyframe_without_slot_appends_as_jax(ctx):
+    """create_keyframe with `slot` left out, on a map with keyframes: both
+    packages take the first free slot (JAX on the device, the port by one
+    counted host read) and leave equal maps, equal to the explicit-slot
+    insert; keyframe 0 is not overwritten."""
+    cfg, tcfg = ctx["cfg"], ctx["tcfg"]
+    jm, tm = ctx["jmap"], ctx["tmap"]
+    jf, tf = ctx["jframes"][3], ctx["tframes"][3]
+    sj = jtrack.bind_markers(jm, jf)
+    _, R0, t0, _ = jtrack.aruco_pose_candidate(jm, jf, sj, ctx["jc"], cfg)
+    obs = jnp.full(jf.kp_uv.shape[0], -1, jnp.int32)
+    jm2, jk = jmap.create_keyframe(jm, jf, R0, t0, obs, sj, 99, 3.3,
+                                   ctx["jc"], cfg)
+    ttrack.SYNCS["count"] = 0
+    tm2, tk = tmap.create_keyframe(tm, tf, _t(R0), _t(t0), _t(obs), _t(sj),
+                                   99, 3.3, ctx["tc"], tcfg)
+    assert ttrack.SYNCS["count"] == 1
+    first_free = int(np.flatnonzero(~np.asarray(jm.kf_valid))[0])
+    assert np.asarray(jm.kf_valid)[0] and first_free > 0
+    assert int(jk) == tk == first_free
+    _assert_maps(tm2, jm2)
+    tm3, _ = tmap.create_keyframe(tm, tf, _t(R0), _t(t0), _t(obs), _t(sj),
+                                  99, 3.3, ctx["tc"], tcfg, slot=first_free)
+    for f in tm2._fields:
+        assert torch.equal(getattr(tm2, f), getattr(tm3, f)), f
+
+
 def test_create_keyframe_and_triangulation_match_jax(ctx):
     """create_keyframe, the two-view triangulation against one neighbour,
     and the covisible triangulation: every neighbour's candidate set, then

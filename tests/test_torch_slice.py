@@ -17,10 +17,12 @@ reference files the port is held to (orb_slam2_aruco_tpu_torch/data/):
                  run's ATE. chip_smoke.py holds the port to it on the card.
 
 `add_serving_reference` adds, to both files, the JAX package's K4 quad
-proposal on a few of those frames (`ref_quad_*`) and a `localize_stream`
+proposal on a few of those frames (`ref_quad_*`), a `localize_stream`
 run (`ref_stream_*`: chunk 64 over 128 frames in ref_full, the bench's
-serving form; chunk 4 with a rewind in ref_small), and to ref_small
-`track_batch` in each of its modes (`ref_tb_*`).
+serving form; chunk 4 with a rewind in ref_small) and `track_batch` in
+each of its modes (`ref_tb_*`: one chunk of 4 frames in ref_small, of 16
+in ref_full), and to ref_full the default serving form (`ref_dstream_*`:
+localize_stream and SlamConfig at their defaults, a rewind mid-chunk).
 
 `add_slam_reference` adds, to both files, the JAX SlamSystem in SLAM mode
 at tracking.pipeline_depth 0 over the map frames and the localization of
@@ -37,16 +39,18 @@ loop step and after the drain (`ref_loop_snap_*`).
 `add_pipe_reference` adds, to both files, the JAX SlamSystem in pipelined
 SLAM mode (`ref_pipe_*`): ref_full's own depth-4 map build (bench.py's
 SLAM pass; the map it leaves is the file's map), and on ref_small depth 2
-over the shifted scene plus a run that loses tracking and rewinds.
+over the shifted scene; in both files a run at the file's depth that loses
+tracking and rewinds (`ref_pipe_rewind_*`).
 
 Each file is a valid map checkpoint (the JAX and the port's load_map read
 it) with the reference arrays under `ref_*` keys. Regenerate everything
 with `--regen`, or only the serving, SLAM, loop or pipelined keys with
 `--serving`, `--slam`, `--loop` or `--pipe` (the existing keys stay
-byte-equal):
+byte-equal; `--parts` picks some of the serving recordings):
 
     python tests/test_torch_slice.py \
         --regen|--serving|--slam|--loop|--pipe [small|full]
+    python tests/test_torch_slice.py --serving full --parts tb,dstream
 
 `add_video_reference` (`--video`, needs cv2) writes a third file,
 ref_video.npz: the real-footage sequence of tests/test_ingest.py's 25h7
@@ -266,8 +270,22 @@ TB_INPUTS = ("R_last", "t_last", "vel_R", "vel_t", "last_uv", "last_desc",
              "last_obs", "last_valid", "last_octave", "last_angle", "ref_kf",
              "pt_visible", "pt_found")
 
+# frames of the recorded track_batch chunk (reference frames 2 on)
+TB_CHUNK = {"small": 4, "full": 16}
+
+# the default serving form (ref_dstream_*, ref_full only): localize_stream
+# at its own chunk and depth, SlamConfig's default tracking serving knobs
+# and ArUco route (`default_stream_spec`), a blank frame after frame 19 —
+# mid-chunk, so one speculative chunk is in flight when the stream rewinds
+# — then the rest of the sweep and the way back (65 frames)
+DSTREAM_ORDER = (list(range(20)) + [-1] + list(range(20, 32))
+                 + list(range(31, -1, -1)))
+
 # reference frames whose K4 quad proposal is recorded
 QUAD_FRAMES = {"small": [0, 4], "full": [0, 8, 16, 24]}
+
+# the serving recordings, each under its keys ref_<part>_*
+SERVING_PARTS = ("quad", "tb", "stream", "dstream")
 
 
 def serving_cfg(cfg, loc_seed_mode, loc_extrap_passes, loc_two_stage=True):
@@ -276,6 +294,32 @@ def serving_cfg(cfg, loc_seed_mode, loc_extrap_passes, loc_two_stage=True):
     return cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, loc_seed_mode=loc_seed_mode,
         loc_extrap_passes=loc_extrap_passes, loc_two_stage=loc_two_stage))
+
+
+def default_stream_spec(config, localize_stream):
+    """The default serving form from either package's config module and
+    SlamSystem.localize_stream: their defaults, and DSTREAM_ORDER."""
+    import inspect
+
+    d = config.SlamConfig()
+    sig = inspect.signature(localize_stream).parameters
+    return dict(chunk=sig["chunk"].default, depth=sig["depth"].default,
+                loc_seed_mode=d.tracking.loc_seed_mode,
+                loc_extrap_passes=d.tracking.loc_extrap_passes,
+                loc_two_stage=d.tracking.loc_two_stage,
+                detect_downsample=d.aruco.detect_downsample,
+                order=list(DSTREAM_ORDER))
+
+
+def stream_cfg(cfg, spec):
+    """`cfg` with a stream spec's serving mode and, where the spec names
+    one, its ArUco downsample (either package's SlamConfig)."""
+    cfg = serving_cfg(cfg, spec["loc_seed_mode"], spec["loc_extrap_passes"],
+                      spec.get("loc_two_stage", True))
+    if "detect_downsample" in spec:
+        cfg = cfg.replace(aruco=dataclasses.replace(
+            cfg.aruco, detect_downsample=spec["detect_downsample"]))
+    return cfg
 
 
 def stream_frames(imgs, order):
@@ -320,37 +364,67 @@ def jax_quads_k4(binary, acfg):
     return np.asarray(q), np.asarray(s), np.asarray(v)
 
 
-def _record_stream(cfg, path, imgs, spec):
+def _record_stream(cfg, path, imgs, spec, prefix="ref_stream_"):
+    """JAX localize_stream over stream_frames(imgs, spec["order"]) after one
+    relocalizing track_monocular on reference frame 0: the emitted ids,
+    OK/None and poses, stats["reloc"], and under `prefix` + rewinds / built
+    the stream's rewinds (each starts a run of per-frame track_monocular
+    calls) and the frames it built (every frame of every chunk dispatched,
+    discarded ones included, and every per-frame call)."""
+    from unittest import mock
+
     from orb_slam2_aruco_tpu.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu.pipeline import tracking as jtrack
     from orb_slam2_aruco_tpu.pipeline.system import SlamSystem, TrackingState
 
-    system = SlamSystem(serving_cfg(cfg, spec["loc_seed_mode"],
-                                    spec["loc_extrap_passes"]))
+    system = SlamSystem(stream_cfg(cfg, spec))
     system.load_map(path)
     system.track_monocular(imgs[0], ts=0.0)
     if system.state is not TrackingState.OK:
         raise RuntimeError("the stream's first frame did not relocalize")
     src = StagedSource(stream_frames(imgs, spec["order"]),
                        batch=spec["chunk"])
+    calls = []          # "B" per frame of a dispatched chunk, "M" per frame
+    real_tb, real_tm = jtrack.track_batch, system.track_monocular
+
+    def track_batch(state, imgs_b, *a, **k):
+        calls.extend("B" * imgs_b.shape[0])
+        return real_tb(state, imgs_b, *a, **k)
+
+    def track_monocular(img, ts):
+        calls.append("M")
+        return real_tm(img, ts)
+
+    system.track_monocular = track_monocular
     fid, ok, Rs, ts = [], [], [], []
-    for f, _, p in system.localize_stream(src, chunk=spec["chunk"],
-                                          depth=spec["depth"]):
-        fid.append(f)
-        ok.append(p is not None)
-        R, t = p if p is not None else (np.eye(3), np.zeros(3))
-        Rs.append(np.asarray(R, np.float32))
-        ts.append(np.asarray(t, np.float32))
+    with mock.patch.object(jtrack, "track_batch", track_batch):
+        for f, _, p in system.localize_stream(src, chunk=spec["chunk"],
+                                              depth=spec["depth"]):
+            fid.append(f)
+            ok.append(p is not None)
+            R, t = p if p is not None else (np.eye(3), np.zeros(3))
+            Rs.append(np.asarray(R, np.float32))
+            ts.append(np.asarray(t, np.float32))
+    rewinds = sum(1 for j, c in enumerate(calls)
+                  if c == "M" and (j == 0 or calls[j - 1] == "B"))
     spec_json = {k: v for k, v in spec.items() if k != "order"}
-    return dict(ref_stream_spec=np.asarray(json.dumps(spec_json)),
-                ref_stream_order=np.asarray(spec["order"], np.int32),
-                ref_stream_fid=np.asarray(fid, np.int32),
-                ref_stream_ok=np.asarray(ok), ref_stream_R=np.stack(Rs),
-                ref_stream_t=np.stack(ts),
-                ref_stream_reloc=np.asarray(system.stats["reloc"]))
+    out = {"spec": np.asarray(json.dumps(spec_json)),
+           "order": np.asarray(spec["order"], np.int32),
+           "fid": np.asarray(fid, np.int32), "ok": np.asarray(ok),
+           "R": np.stack(Rs), "t": np.stack(ts),
+           "reloc": np.asarray(system.stats["reloc"])}
+    if prefix != "ref_stream_":
+        out.update(rewinds=np.asarray(rewinds, np.int64),
+                   built=np.asarray(len(calls), np.int64))
+    print(f"  {prefix}*: {len(fid)} frames emitted, "
+          f"{len(fid) - sum(ok)} None, reloc "
+          f"{system.stats['reloc']}, rewinds {rewinds}, frames built "
+          f"{len(calls)}", flush=True)
+    return {prefix + k: v for k, v in out.items()}
 
 
-def _record_track_batch(cfg, path, imgs):
-    """JAX track_batch in each mode on reference frames 2-5 (chunk 4), from
+def _record_track_batch(cfg, path, imgs, chunk=4):
+    """JAX track_batch in each mode on reference frames 2 to chunk + 1, from
     the tracking state after frames 0 (relocalization) and 1."""
     import jax.numpy as jnp
 
@@ -372,7 +446,7 @@ def _record_track_batch(cfg, path, imgs):
                pt_visible=system.map.pt_visible,
                pt_found=system.map.pt_found)
     out = {f"ref_tb_in_{k}": np.asarray(v) for k, v in ins.items()}
-    stack = jnp.asarray(np.stack(imgs[2:6]))
+    stack = jnp.asarray(np.stack(imgs[2:2 + chunk]))
     for name, mode in TB_MODES.items():
         ctrls, carry = jtrack.track_batch(
             system.map, stack, ins["R_last"], ins["t_last"], ins["vel_R"],
@@ -386,39 +460,58 @@ def _record_track_batch(cfg, path, imgs):
     return out
 
 
-def add_serving_reference(which=("small", "full"), out_dir=DATA_DIR):
-    """Record, into the existing ref_<which>.npz, the JAX package's
-    localize_stream run (STREAM_SPECS), its K4 quad proposal on QUAD_FRAMES
-    and (small only) track_batch in each mode (TB_MODES)."""
+def add_serving_reference(which=("small", "full"), out_dir=DATA_DIR,
+                          parts=SERVING_PARTS):
+    """Record, into the existing ref_<which>.npz, the `parts` of the JAX
+    package's serving runs: its K4 quad proposal on QUAD_FRAMES (quad),
+    track_batch in each mode (TB_MODES) on one chunk of TB_CHUNK frames
+    (tb), the localize_stream run of STREAM_SPECS (stream) and, in ref_full,
+    the default serving form (dstream, `default_stream_spec`). Every key of
+    another part stays byte-equal."""
     import time
 
+    from orb_slam2_aruco_tpu import config as jconfig
     from orb_slam2_aruco_tpu.io import synthetic as jsyn
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem
 
+    drop = tuple(f"ref_{p}_" for p in parts)
     for name in which:
         t0 = time.perf_counter()
         path = os.path.join(out_dir, f"ref_{name}.npz")
         with np.load(path) as z:
-            arrays = {k: z[k] for k in z.files
-                      if not k.startswith(("ref_stream_", "ref_tb_",
-                                           "ref_quad_"))}
+            arrays = {k: z[k] for k in z.files if not k.startswith(drop)}
         cfg, world_kw, _, loc_params = SETUPS[name]()
         imgs, _ = render_frames(jsyn, world_kw, cfg.camera, loc_params,
                                 cfg.aruco.dictionary)
-        quads = [jax_quads_k4(half_res_binary(imgs[i], cfg.aruco), cfg.aruco)
-                 for i in QUAD_FRAMES[name]]
-        arrays.update(
-            ref_quad_frames=np.asarray(QUAD_FRAMES[name], np.int32),
-            ref_quad_q=np.stack([q[0] for q in quads]),
-            ref_quad_score=np.stack([q[1] for q in quads]),
-            ref_quad_valid=np.stack([q[2] for q in quads]))
-        print(f"{name}: quads {[int(q[2].sum()) for q in quads]} valid, "
-              f"{time.perf_counter() - t0:.0f} s", flush=True)
-        if name == "small":
-            arrays.update(_record_track_batch(cfg, path, imgs))
-        arrays.update(_record_stream(cfg, path, imgs, STREAM_SPECS[name]))
+        if "quad" in parts:
+            quads = [jax_quads_k4(half_res_binary(imgs[i], cfg.aruco),
+                                  cfg.aruco) for i in QUAD_FRAMES[name]]
+            arrays.update(
+                ref_quad_frames=np.asarray(QUAD_FRAMES[name], np.int32),
+                ref_quad_q=np.stack([q[0] for q in quads]),
+                ref_quad_score=np.stack([q[1] for q in quads]),
+                ref_quad_valid=np.stack([q[2] for q in quads]))
+            print(f"{name}: quads {[int(q[2].sum()) for q in quads]} valid,"
+                  f" {time.perf_counter() - t0:.0f} s", flush=True)
+        for part in ("tb", "stream", "dstream"):
+            if part not in parts or (part == "dstream" and name != "full"):
+                continue
+            t1 = time.perf_counter()
+            if part == "tb":
+                arrays.update(_record_track_batch(cfg, path, imgs,
+                                                  TB_CHUNK[name]))
+            elif part == "stream":
+                arrays.update(_record_stream(cfg, path, imgs,
+                                             STREAM_SPECS[name]))
+            else:
+                arrays.update(_record_stream(
+                    cfg, path, imgs,
+                    default_stream_spec(jconfig, SlamSystem.localize_stream),
+                    prefix="ref_dstream_"))
+            print(f"{name}: {part} recorded in "
+                  f"{time.perf_counter() - t1:.0f} s", flush=True)
         np.savez_compressed(path, **arrays)
-        print(f"{path}: stream fids {arrays['ref_stream_fid'].tolist()} ok "
-              f"{arrays['ref_stream_ok'].astype(int).tolist()}, "
+        print(f"{path}: serving parts {list(parts)}, "
               f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
@@ -943,9 +1036,10 @@ def add_loop_reference(which=("small", "full"), out_dir=DATA_DIR):
 # pipeline depth of each file's pipelined run: ref_full's own configuration
 # (bench.py's SLAM pass), and 2 on the small setup's shifted scene
 PIPE_DEPTH = {"small": 2, "full": 4}
-# the small rewind run (tests/test_stream.py::
-# test_pipelined_lost_rewind_and_recovery): shifted frames 0-7, three black
-# frames, shifted frames 8-11; -1 = black
+# the rewind run (tests/test_stream.py::
+# test_pipelined_lost_rewind_and_recovery): the run's frames 0-7 (ref_small:
+# the shifted scene, initialized at frame 4; ref_full: the map frames,
+# initialized at frame 6), three black frames, frames 8-11; -1 = black
 PIPE_REWIND_ORDER = list(range(8)) + [-1, -1, -1] + list(range(8, 12))
 
 
@@ -1052,8 +1146,8 @@ def add_pipe_reference(which=("small", "full"), out_dir=DATA_DIR):
     own ref_cfg; the map the run leaves must equal the map arrays already in
     the file (they were built the same way). ref_small: depth 2 over the
     shifted scene (`SMALL_SHIFTED_PARAMS`: the recorded small scene is
-    chaotic in JAX itself, ROADMAP C2), and the rewind run
-    (PIPE_REWIND_ORDER, reset_if_lost_with_kfs_leq = 0) under
+    chaotic in JAX itself, ROADMAP C2). Both: the rewind run at the file's
+    depth (PIPE_REWIND_ORDER, reset_if_lost_with_kfs_leq = 0) under
     ref_pipe_rewind_*."""
     import time
 
@@ -1089,19 +1183,21 @@ def add_pipe_reference(which=("small", "full"), out_dir=DATA_DIR):
             if differ:
                 raise RuntimeError(f"the depth-4 re-run's map differs from "
                                    f"the file's in {differ}")
-        else:
-            rcfg = pipe_cfg(base, PIPE_DEPTH[name],
-                            reset_if_lost_with_kfs_leq=0)
-            rimgs, rgt = rewind_frames(imgs, gt)
-            rew = pipe_run(SlamSystem(rcfg), mapping, rimgs, rgt)
-            arrays.update({f"ref_pipe_rewind_{k}": v
-                           for k, v in rew.items()})
-            arrays["ref_pipe_rewind_order"] = np.asarray(PIPE_REWIND_ORDER,
-                                                         np.int32)
-            print(f"  rewind run: fids {rew['fid'].tolist()}, states "
-                  f"{rew['state'].tolist()}, relocalized "
-                  f"{rew['reloc_fid'].tolist()}, inserts "
-                  f"{rew['inserts'].tolist()}", flush=True)
+        t1 = time.perf_counter()
+        rcfg = pipe_cfg(base, PIPE_DEPTH[name], reset_if_lost_with_kfs_leq=0)
+        rimgs, rgt = rewind_frames(imgs, gt)
+        rew = pipe_run(SlamSystem(rcfg), mapping, rimgs, rgt)
+        if 2 not in rew["state"][:PIPE_REWIND_ORDER.index(-1)].tolist():
+            raise RuntimeError("the rewind run had no map before its black "
+                               "frames")
+        arrays.update({f"ref_pipe_rewind_{k}": v for k, v in rew.items()})
+        arrays["ref_pipe_rewind_order"] = np.asarray(PIPE_REWIND_ORDER,
+                                                     np.int32)
+        print(f"  rewind run: fids {rew['fid'].tolist()}, states "
+              f"{rew['state'].tolist()}, relocalized "
+              f"{rew['reloc_fid'].tolist()}, inserts "
+              f"{rew['inserts'].tolist()}, "
+              f"{time.perf_counter() - t1:.0f} s", flush=True)
         np.savez_compressed(path, **arrays)
         print(f"{path}: depth {PIPE_DEPTH[name]} states "
               f"{run['state'].tolist()}, inserts {run['inserts'].tolist()}, "
@@ -1309,8 +1405,8 @@ if __name__ == "__main__":
              "--dicts")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
-                 "--regen|--serving|--slam|--loop|--pipe [small|full] | "
-                 "--video | --dicts")
+                 "--regen|--serving|--slam|--loop|--pipe [small|full] "
+                 "[--parts quad,tb,stream,dstream] | --video | --dicts")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
@@ -1320,7 +1416,10 @@ if __name__ == "__main__":
         add_loop_reference(picked)
         add_pipe_reference(picked)
     elif "--serving" in sys.argv:
-        add_serving_reference(picked)
+        parts = SERVING_PARTS
+        if "--parts" in sys.argv:
+            parts = tuple(sys.argv[sys.argv.index("--parts") + 1].split(","))
+        add_serving_reference(picked, parts=parts)
     elif "--slam" in sys.argv:
         add_slam_reference(picked)
     elif "--pipe" in sys.argv:
@@ -1457,6 +1556,11 @@ def _digest(path, skip):
     return len(keys), h.hexdigest()
 
 
+# the keys the full-width serving recordings added later (ref_full's
+# track_batch chunk and default serving form): the digests below leave them
+# out (tests/test_torch_serve.py holds every older key)
+LATER_SERVING_KEYS = {"small": (), "full": ("ref_tb_", "ref_dstream_")}
+
 # sha256 over (name, dtype, shape, bytes) of every key a file held before
 # the loop recording (ref_loop_*) was added: --loop must leave them equal
 # (the pipelined recording, ref_pipe_*, came later)
@@ -1479,8 +1583,8 @@ def test_loop_recording_keeps_the_other_keys_byte_equal(name):
     with np.load(path) as z:
         loops = z["ref_loop_loops"]
         reloc = z["ref_loop_reloc_marker"]
-    assert (_digest(path, ("ref_loop_", "ref_pipe_"))
-            == PRE_LOOP_DIGESTS[name])
+    assert (_digest(path, ("ref_loop_", "ref_pipe_")
+                    + LATER_SERVING_KEYS[name]) == PRE_LOOP_DIGESTS[name])
     assert len(loops) >= 1 and loops[0, 3] == 1
     kinds = {"small": [0, 1], "full": [0]}[name]
     assert reloc[reloc >= 0].tolist() == kinds
@@ -1521,7 +1625,8 @@ def test_pipe_recording_keeps_the_other_keys_byte_equal(name):
     """`--pipe` adds the ref_pipe_* keys and leaves every other key of the
     file byte-equal (tests/test_torch_pipe.py holds the recordings)."""
     path = os.path.join(DATA_DIR, f"ref_{name}.npz")
-    assert _digest(path, ("ref_pipe_",)) == PRE_PIPE_DIGESTS[name]
+    assert (_digest(path, ("ref_pipe_",) + LATER_SERVING_KEYS[name])
+            == PRE_PIPE_DIGESTS[name])
     with np.load(path) as z:
         cfg = json.loads(str(z["ref_pipe_cfg"]))
     assert cfg["tracking"]["pipeline_depth"] == PIPE_DEPTH[name]
