@@ -86,8 +86,9 @@ capacity), in phases:
               MAX_CLASSIC_INIT_SYNCS.
   9. pipe     pipelined SLAM mode at the bench's depth (pipeline_depth 4,
               data/ref_full.npz's own configuration): bench.py's SLAM pass
-              (bench.py:128-164) — a warm-up pass, then a timed pass over
-              the 32 map frames through StagedSource(batch=4), per-call
+              (bench.py:128-164, bench_torch.slam_pass) — a warm-up
+              pass, then a timed pass over the 32 map frames through
+              StagedSource(batch=4), per-call
               latency, flush and a device synchronize; slam_fps =
               (n - drop) / (sum of latencies + flush), p50, p90 — and the
               same pass at depth 0 on the same frames. The depth-4 run's
@@ -110,7 +111,25 @@ capacity), in phases:
               example (examples/mono_synthetic.py: 40 frames, --two-pass,
               --save-map) must exit 0, write its TUM file and its map and
               print an ATE.
- 10. loop     SLAM mode with loop closing and relocalization at the same
+ 10. bench    bench_torch.py's workload (bench.py's, through the port) at
+              full size: the scene (bench_torch.bench_scene) must be
+              ref_full's recorded one; a warm-up and a timed SLAM pass
+              (bench_torch.slam_pass, the pipe phase's pass) held to
+              ref_pipe_* as the pipe phase holds its pass; on the warm
+              system the serving pass (bench_torch.stream_pass: one warm-up
+              chunk of 64, then 1024 frames in chunks of 64, extrapolate
+              mode, two chunks in flight): the warm-up chunk and the timed
+              stream's first frames held to the JAX package's run of
+              bench.py's sequence (ref_bench_*: ids, OK/None and rewinds
+              equal, poses within 0.5 deg / 2 cm), all 1024 poses non-None
+              and within 0.5 deg / 2 cm of JAX's for the same image; the
+              30-iteration whole-map BA (bench_torch.ba_rate, 256 camera
+              slots: the CG branch) on ref_full's map against JAX's on it:
+              chi2 before and after within BENCH_CHI2_TOL, keyframe poses
+              within R 2e-4 / t 2e-3; the idle shares of a third SLAM pass
+              and two stream chunks from torch.profiler. Prints
+              bench_torch's JSON line.
+ 11. loop     SLAM mode with loop closing and relocalization at the same
               widths and capacities (data/ref_full.npz, ref_loop_*): the
               bench world's markers at the left of a long wall, a pan away
               and back with the map built after frame 18 rigidly displaced
@@ -134,7 +153,7 @@ capacity), in phases:
               ms per insert, per GBA slice and per loop correction, and the
               loop frame's ms; then the scene once more under the sync
               debug mode: at most MAX_LOOP_SYNCS calls, printed by site.
- 11. dist     the distributed global BA over device lists of the one card
+ 12. dist     the distributed global BA over device lists of the one card
               (every entry cuda:0: the cost of sharding, not scaling): on
               the problem of the first GBA slice of the loop phase's
               untimed sync-counting run (the map right after the loop
@@ -153,7 +172,7 @@ capacity), in phases:
               Then the loop scene again through SlamSystem with
               optim.distributed_gba over 4 entries: every GBA slice
               distributed, held to the JAX run as the loop phase holds it.
- 12. video    the real-footage CLI (examples/mono_video.py's `run`) over
+ 13. video    the real-footage CLI (examples/mono_video.py's `run`) over
               the recorded ARUCO_MIP_25h7 fly-by (data/ref_video.npz: 18
               frames at 480x360 as the JAX VideoSource decoded them from
               their MJPG file): --two-pass --chunk 6 --features 700, the
@@ -165,7 +184,7 @@ capacity), in phases:
               within 0.5 deg / 2 cm, ATE at most max(1.5 x, +5 mm) of
               JAX's and below 12 cm. Without cv2, VideoSource and
               ImageFolderSource must raise its ImportError.
- 13. api      the public per-frame functions and the generated ArUco
+ 14. api      the public per-frame functions and the generated ArUco
               dictionaries (data/ref_dicts.npz, recorded from the JAX
               package by tests/test_torch_slice.py --dicts): (a) the
               recorded ARUCO_MIP_16h3 and TPU_36h12 frames through
@@ -183,15 +202,16 @@ capacity), in phases:
               directory, its quads equal to the committed library's. Then
               solve_damped (LU) against small_spd_solve (Cholesky) and the
               ms per call of each entry point.
- 14. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+ 15. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
 Launch counts are zeroed just before each of slice, quads, stream, serve
-(its default-form stream), slam, pipe (its timed depth-4 pass), loop, dist
-(its system run), video and api and read just after: each must have
-launched the kernels of its path (K1-K3 on slice, stream, serve, slam,
-pipe, loop, dist, video and api, K4 on quads), and K1, K2 and K3 once per
-frame built (api: exactly its count).
+(its default-form stream), slam, pipe (its timed depth-4 pass), bench (the
+whole of bench_torch's run), loop, dist (its system run), video and api
+and read just after: each must have launched the kernels of its path
+(K1-K3 on slice, stream, serve, slam, pipe, bench, loop, dist, video and
+api, K4 on quads), and K1, K2 and K3 once per frame built (api: exactly
+its count).
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -281,9 +301,9 @@ TB_MODES = {
 # and the chunk's control read
 SERVE_DEBUG_FRAMES = 16
 MAX_SCAN_SYNCS = 2 * SERVE_DEBUG_FRAMES + 1
-# the bench's SLAM pass: depth, frames per staged batch; the example's
+# the bench's SLAM pass depth (bench_torch.SLAM_DEPTH); the example's
 # frames
-PIPE_DEPTH, PIPE_BATCH = 4, 4
+PIPE_DEPTH = 4
 EXAMPLE_FRAMES = 40
 # the distributed global BA: mesh sizes (entries of the one card) and the
 # limits of the sharded solve against the single-device one, JAX's own:
@@ -297,6 +317,10 @@ DIST_MESHES = (1, 2, 4, 8)
 DIST_ROT_TOL, DIST_TRANS_TOL, DIST_PTS_TOL = 2e-4, 2e-3, 5e-3
 DIST_PTS_SHARE = 0.98
 DIST_SYSTEM_MESH = 4
+# the bench's whole-map BA on ref_full's map against JAX's: chi2 before and
+# after within this share of JAX's (keyframe poses: DIST_ROT_TOL,
+# DIST_TRANS_TOL)
+BENCH_CHI2_TOL = 0.01
 
 KERNEL_META = {
     "fast": ("orb_slam2_aruco_tpu_torch/kernels/csrc/fast.cu",
@@ -317,6 +341,7 @@ PATH_KERNELS = {
     "serve": ("fast", "patches", "cc_fused"),
     "slam": ("fast", "patches", "cc_fused"),
     "pipe": ("fast", "patches", "cc_fused"),
+    "bench": ("fast", "patches", "cc_fused"),
     "loop": ("fast", "patches", "cc_fused"),
     "dist": ("fast", "patches", "cc_fused"),
     "video": ("fast", "patches", "cc_fused"),
@@ -1521,58 +1546,6 @@ def slam_sync_phase(scfg, imgs):
                          f"initialization, above {MAX_CLASSIC_INIT_SYNCS}")
 
 
-def bench_slam_pass(cfg, frames):
-    """bench.py's SLAM pass (bench.py:128-164) on a fresh system: the frames
-    through StagedSource(batch=PIPE_BATCH), each track_monocular call timed,
-    then flush and a device synchronize. Every keyframe the run creates is
-    recorded by its frame id, in order. Returns (system, the trajectory
-    records, keyframes created by frame, keyframes inserted by each call,
-    {slam_fps, p50_ms, p90_ms, flush_ms, drop})."""
-    from unittest import mock
-
-    import numpy as np
-    import torch
-
-    from orb_slam2_aruco_tpu_torch.io.ingest import StagedSource
-    from orb_slam2_aruco_tpu_torch.pipeline import mapping
-    from orb_slam2_aruco_tpu_torch.pipeline.system import (
-        SlamSystem,
-        TrackingState,
-    )
-
-    created = []
-    real_create = mapping.create_keyframe
-
-    def create(*a, **kw):
-        created.append(int(a[6]))
-        return real_create(*a, **kw)
-
-    system = SlamSystem(cfg, device=DEVICE)
-    lat, per_call, ok_from = [], [], None
-    src = StagedSource([(f, k / 30.0) for k, f in enumerate(frames)],
-                       batch=PIPE_BATCH, device=DEVICE)
-    with mock.patch.object(mapping, "create_keyframe", create):
-        for j, (img, ts) in enumerate(src):
-            before = system.stats["kf_inserted"]
-            t0 = time.perf_counter()
-            system.track_monocular(img, ts=ts)
-            lat.append(time.perf_counter() - t0)
-            per_call.append(system.stats["kf_inserted"] - before)
-            if ok_from is None and system.state is TrackingState.OK:
-                ok_from = j
-        t0 = time.perf_counter()
-        system.flush()
-        torch.cuda.synchronize()
-        flush_s = time.perf_counter() - t0
-    drop = (ok_from if ok_from is not None else 4) + 2
-    steady = np.asarray(lat[drop:])
-    return system, system.get_trajectory(), created, per_call, dict(
-        slam_fps=(len(frames) - drop) / (steady.sum() + flush_s),
-        p50_ms=float(np.percentile(steady, 50) * 1e3),
-        p90_ms=float(np.percentile(steady, 90) * 1e3),
-        flush_ms=flush_s * 1e3, drop=drop)
-
-
 def hold_slam_run(label, system, records, ref, pre):
     """Hold a SLAM run's trajectory records, keyframes (frame ids and
     poses), valid points and ATE to the JAX run under ref[pre + ...]
@@ -1733,6 +1706,7 @@ def pipe_phase(cfg, ref, loc_imgs):
     counts of the timed depth-4 pass."""
     import numpy as np
     import torch
+    from bench_torch import slam_pass
 
     from orb_slam2_aruco_tpu_torch import kernels
     from orb_slam2_aruco_tpu_torch.examples import mono_synthetic
@@ -1747,11 +1721,11 @@ def pipe_phase(cfg, ref, loc_imgs):
                          f"depth-{PIPE_DEPTH} configuration")
     frames = render(cfg, ref, "ref_map_params")
     t_phase = time.perf_counter()
-    _, _, _, _, warm = bench_slam_pass(cfg, frames)          # warm-up
+    _, _, _, _, warm = slam_pass(cfg, frames, DEVICE)          # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     tracking.SYNCS["count"] = 0
-    system, records, created, _, m4 = bench_slam_pass(cfg, frames)
+    system, records, created, _, m4 = slam_pass(cfg, frames, DEVICE)
     counts = dict(kernels.launch_counts)
     syncs = tracking.SYNCS["count"]
     phase("pipe", f"kernel launches in the timed depth-{PIPE_DEPTH} pass: "
@@ -1770,7 +1744,7 @@ def pipe_phase(cfg, ref, loc_imgs):
 
     zcfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
                                                     pipeline_depth=0))
-    system0, records0, _, per_call, m0 = bench_slam_pass(zcfg, frames)
+    system0, records0, _, per_call, m0 = slam_pass(zcfg, frames, DEVICE)
     got_ins = np.flatnonzero(per_call).tolist()
     want_ins = np.flatnonzero(ref["ref_slam_kf_insert"]).tolist()
     if got_ins != want_ins:
@@ -1857,6 +1831,164 @@ def pipe_phase(cfg, ref, loc_imgs):
           f"keyframes; " + " | ".join(ln for ln in lines if ln.startswith((
               "median", "keyframes", "second pass", "trajectory", "ATE")))
           + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def hold_bench_stream(label, got, ref, pre, rewinds):
+    """A bench stream's first len(ref[pre + "fid"]) emitted [(frame id,
+    pose or None)] and its rewinds over them against the JAX package's
+    recording (ref_bench_*): ids, OK/None and rewinds equal, poses within
+    the SLAM limits (the map is the port's own). Returns (worst deg, worst
+    m)."""
+    n = len(ref[pre + "fid"])
+    fids = [f for f, _ in got[:n]]
+    ok = [p is not None for _, p in got[:n]]
+    if fids != ref[pre + "fid"].tolist() or ok != ref[pre + "ok"].tolist():
+        raise PhaseError(f"{label}: emitted ids {fids[:4]}..{fids[-2:]} and "
+                         f"{n - sum(ok)} None vs JAX's "
+                         f"{ref[pre + 'fid'][:4].tolist()}.."
+                         f"{ref[pre + 'fid'][-2:].tolist()} and "
+                         f"{int((~ref[pre + 'ok']).sum())} None")
+    if rewinds != int(ref[pre + "rewinds"]):
+        raise PhaseError(f"{label}: {rewinds} rewinds over the first {n} "
+                         f"frames vs JAX's {int(ref[pre + 'rewinds'])}")
+    worst_r, worst_t = pose_errors([p for _, p in got[:n]], ref[pre + "R"],
+                                   ref[pre + "t"])
+    if worst_r > SLAM_ROT_TOL_DEG or worst_t > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"{label}: poses off JAX's by {worst_r:.4f} deg / "
+                         f"{worst_t * 100:.4f} cm")
+    return worst_r, worst_t
+
+
+def bench_phase(path, cfg, ref):
+    """bench_torch.py's workload at full size (bench.py's: 1024 timed
+    stream frames, chunk 64, 30 BA iterations), held to the JAX package:
+    the scene is ref_full's recorded one; the warm-up and the timed SLAM
+    pass to ref_pipe_* as the pipe phase holds its pass; the warm-up chunk
+    and the first frames of the timed stream to ref_bench_* (ids, OK/None,
+    rewinds equal; poses within the SLAM limits), and all 1024 poses
+    non-None and within the SLAM limits of JAX's pose for the same image at
+    the same place in its chunk (recorded frame k % the recorded count);
+    the 30-iteration whole-map BA on ref_full's own map (the JAX depth-4
+    map) to JAX's: chi2 before and after within BENCH_CHI2_TOL, keyframe
+    poses within the dist phase's R / t limits; K1-K3 once per frame built.
+    Prints bench_torch's JSON line. Returns the kernel launch counts."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.pipeline import mapping, tracking
+    from orb_slam2_aruco_tpu_torch.pipeline.system import SlamSystem
+
+    spec = json.loads(str(ref["ref_bench_spec"]))
+    if (spec["chunk"], spec["n_timed"], spec["ba_iters"]) != (
+            bench_torch.CHUNK, bench_torch.N_TIMED, bench_torch.BA_ITERS):
+        raise PhaseError(f"the JAX recording's bench {spec} is not "
+                         f"bench_torch's")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tracking.SYNCS["count"] = 0
+    t0 = time.perf_counter()
+    res = bench_torch.run(DEVICE)
+    dt = time.perf_counter() - t0
+    if res["cfg"] != cfg or not all(np.array_equal(a, b) for a, b in zip(
+            res["frames"], render(cfg, ref, "ref_map_params"))):
+        raise PhaseError("bench_torch's scene is not ref_full's recorded "
+                         "scene")
+    counts = dict(kernels.launch_counts)
+    line = res["line"]
+    phase("bench", f"kernel launches in the bench: {counts}")
+    check_launches("bench", counts)
+    check_frames_built("bench", counts, res["built"])
+
+    for label, (system, records, created, _, m) in (
+            ("warm-up SLAM pass", res["warm"]),
+            ("timed SLAM pass", res["timed"])):
+        if created != ref["ref_pipe_inserts"].tolist():
+            raise PhaseError(f"bench {label}: keyframes created at frames "
+                             f"{created} vs JAX's "
+                             f"{ref['ref_pipe_inserts'].tolist()}")
+        summary = hold_slam_run(f"bench {label}", system, records, ref,
+                                "ref_pipe_")
+        phase("bench", f"{label}: keyframes created at {created} (= JAX); "
+              f"{summary}; slam_fps {m['slam_fps']:.4f}, p50 "
+              f"{m['p50_ms']:.3f} ms, p90 {m['p90_ms']:.3f} ms, flush "
+              f"{m['flush_ms']:.3f} ms")
+
+    st = res["stream"]
+    warm = st["warm"]
+    wr, wt = hold_bench_stream("bench warm-up chunk", warm["out"], ref,
+                               "ref_bench_warm_", warm["rewinds_at"][-1])
+    n_rec = len(ref["ref_bench_fid"])
+    sr, stt = hold_bench_stream("bench stream", st["out"], ref,
+                                "ref_bench_", st["rewinds_at"][n_rec - 1])
+    k = np.arange(len(st["out"])) % n_rec
+    ar, at = pose_errors([p for _, p in st["out"]], ref["ref_bench_R"][k],
+                         ref["ref_bench_t"][k])
+    if ar > SLAM_ROT_TOL_DEG or at > SLAM_TRANS_TOL_M:
+        raise PhaseError(f"bench stream: the {len(st['out'])} poses off "
+                         f"JAX's for the same image by {ar:.4f} deg / "
+                         f"{at * 100:.4f} cm")
+    phase("bench", f"warm-up chunk: {len(warm['out'])} ids and OK/None "
+          f"equal to JAX's, {warm['rewinds_at'][-1]} rewinds (= JAX), poses "
+          f"within {wr:.5f} deg / {wt * 100:.5f} cm; the timed stream's "
+          f"first {n_rec} frames: ids and OK/None equal, "
+          f"{st['rewinds_at'][n_rec - 1]} rewinds (= JAX), poses within "
+          f"{sr:.5f} deg / {stt * 100:.5f} cm; all {len(st['out'])} poses "
+          f"non-None and within {ar:.5f} deg / {at * 100:.5f} cm of JAX's "
+          f"for the same image; {st['rewinds']} rewinds in all, "
+          f"{st['built']} frames built")
+    phase("bench", f"stream: {line['value']:.4f} fps over {line['n_timed']}"
+          f" frames ({st['seconds']:.2f} s), median chunk latency "
+          f"{line['loc_chunk_latency_ms']:.1f} ms (bursts "
+          f"{[round(b, 1) for b in st['bursts_ms']]} ms)")
+
+    # the BA on the JAX depth-4 map against JAX's BA on it
+    loaded = SlamSystem(cfg, device=DEVICE)
+    loaded.load_map(path)
+    ba = bench_torch.ba_rate(loaded, cfg)
+    kw = dict(max_cams=cfg.map.max_keyframes,
+              max_pts=min(bench_torch.BA_MAX_PTS, cfg.map.max_points),
+              window_all=True)
+    _, chi0 = mapping.bundle_adjust(loaded.map, loaded.ref_kf, loaded.cam,
+                                    cfg, iters=0, **kw)
+    chi0 = float(chi0)
+    want0, want = float(ref["ref_bench_ba_chi0"]), float(
+        ref["ref_bench_ba_chi"])
+    live = ref["ref_bench_ba_kf"]
+    got_live = np.flatnonzero(as_numpy(ba["state"].kf_valid))
+    dR = float(np.abs(as_numpy(ba["state"].kf_Rcw)[live]
+                      - ref["ref_bench_ba_kf_R"]).max())
+    dt_ = float(np.abs(as_numpy(ba["state"].kf_tcw)[live]
+                       - ref["ref_bench_ba_kf_t"]).max())
+    if (got_live.tolist() != live.tolist()
+            or abs(chi0 - want0) > BENCH_CHI2_TOL * want0
+            or abs(ba["chi2"] - want) > BENCH_CHI2_TOL * want
+            or dR > DIST_ROT_TOL or dt_ > DIST_TRANS_TOL):
+        raise PhaseError(f"bench BA on ref_full's map: keyframes "
+                         f"{got_live.tolist()} (JAX {live.tolist()}), chi2 "
+                         f"{chi0:.6g} -> {ba['chi2']:.6g} (JAX {want0:.6g} "
+                         f"-> {want:.6g}), keyframe poses off JAX's by R "
+                         f"{dR:.2e} / t {dt_:.2e}")
+    phase("bench", f"BA ({bench_torch.BA_ITERS} iterations, window_all, "
+          f"{ba['cams_live']} live of {ba['cams_live'] + ba['cams_masked']} "
+          f"camera slots: the CG branch) on ref_full's map: chi2 "
+          f"{chi0:.6g} -> {ba['chi2']:.6g} (JAX {want0:.6g} -> {want:.6g}),"
+          f" keyframe poses within R {dR:.2e} / t {dt_:.2e} of JAX's; "
+          f"{ba['ba_iters_per_s']:.3f} iterations/s; on the warm system's "
+          f"map {line['ba_iters_per_s']:.3f} iterations/s "
+          f"({line['ba_cams_live']} live, {line['ba_cams_masked']} masked "
+          f"slots)")
+    phase("bench", "idle share (torch.profiler, untimed runs): " + "; ".join(
+        f"{label} {line[f'idle_share_{k}']} ({line[f'idle_{k}_device_events']}"
+        f" device events, busy {line[f'idle_{k}_busy_s']} s of a "
+        f"{line[f'idle_{k}_window_s']:.3f} s window)"
+        for label, k in (("SLAM pass", "slam"), ("two stream chunks",
+                                                 "stream")))
+        + f"; host syncs {tracking.SYNCS['count']}; the bench took "
+        f"{dt:.1f} s")
+    print(json.dumps(line), flush=True)
     return counts
 
 
@@ -2409,6 +2541,7 @@ def video_phase():
 
     import numpy as np
     import torch
+    from bench_torch import slam_pass
 
     from orb_slam2_aruco_tpu_torch import kernels
     from orb_slam2_aruco_tpu_torch.examples import mono_synthetic, mono_video
@@ -2815,7 +2948,8 @@ def main() -> int:
                    "stream": stream_phase(path, cfg, ref, imgs),
                    "serve": serve_phase(path, cfg, ref, imgs),
                    "slam": slam_phase(cfg, ref, imgs),
-                   "pipe": pipe_phase(cfg, ref, imgs)}
+                   "pipe": pipe_phase(cfg, ref, imgs),
+                   "bench": bench_phase(path, cfg, ref)}
         by_path["loop"], gba_input = loop_phase()
         by_path["dist"] = dist_phase(gba_input)
         by_path["video"] = video_phase()

@@ -42,6 +42,14 @@ SLAM pass; the map it leaves is the file's map), and on ref_small depth 2
 over the shifted scene; in both files a run at the file's depth that loses
 tracking and rewinds (`ref_pipe_rewind_*`).
 
+`add_bench_reference` (`--bench`) adds, to ref_full, the JAX package's
+run of bench.py's sequence (`ref_bench_*`): the depth-4 SLAM pass (its map
+is the file's map), then on that warm system the warm-up chunk and the
+first two chunks of the timed localize_stream, with the tracking state the
+stream starts from, and the 30-iteration whole-map BA on the file's map.
+chip_smoke.py's bench phase and tests/test_torch_bench.py hold
+bench_torch.py to it.
+
 Each file is a valid map checkpoint (the JAX and the port's load_map read
 it) with the reference arrays under `ref_*` keys. Regenerate everything
 with `--regen`, or only the serving, SLAM, loop or pipelined keys with
@@ -51,6 +59,7 @@ byte-equal; `--parts` picks some of the serving recordings):
     python tests/test_torch_slice.py \
         --regen|--serving|--slam|--loop|--pipe [small|full]
     python tests/test_torch_slice.py --serving full --parts tb,dstream
+    python tests/test_torch_slice.py --bench
 
 `add_video_reference` (`--video`, needs cv2) writes a third file,
 ref_video.npz: the real-footage sequence of tests/test_ingest.py's 25h7
@@ -1207,6 +1216,157 @@ def add_pipe_reference(which=("small", "full"), out_dir=DATA_DIR):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# bench.py's workload (ref_bench_* keys, ref_full only)
+# ---------------------------------------------------------------------------
+
+# bench.py's serving pass (bench.py:166-208) and global-BA rate
+# (:210-226): the stream's chunk and depth, its seed mode, the timed frames
+# (the recording keeps the first `n_recorded`: two chunks, four wraps of
+# the sweep), the BA's iterations and point bucket
+BENCH_SPEC = dict(chunk=64, depth=2, loc_seed_mode="extrapolate",
+                  loc_extrap_passes=1, n_timed=1024, n_recorded=128,
+                  ba_iters=30, ba_max_pts=8192)
+
+
+def _record_bench_stream(slam, frames, n, chunk):
+    """JAX localize_stream over frames[k % len(frames)] for k < n (ts 0.0,
+    StagedSource(batch=chunk)) on the warm system `slam`: (emitted ids,
+    OK, R, t, rewinds), rewinds counted as _record_stream counts them."""
+    from unittest import mock
+
+    from orb_slam2_aruco_tpu.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu.pipeline import tracking as jtrack
+
+    calls = []
+    real_tb, real_tm = jtrack.track_batch, slam.track_monocular
+
+    def track_batch(state, imgs_b, *a, **k):
+        calls.extend("B" * imgs_b.shape[0])
+        return real_tb(state, imgs_b, *a, **k)
+
+    def track_monocular(img, ts):
+        calls.append("M")
+        return real_tm(img, ts)
+
+    slam.track_monocular = track_monocular
+    fid, ok, Rs, ts = [], [], [], []
+    src = StagedSource([(frames[k % len(frames)], 0.0) for k in range(n)],
+                       batch=chunk)
+    try:
+        with mock.patch.object(jtrack, "track_batch", track_batch):
+            for f, _, p in slam.localize_stream(src, chunk=chunk):
+                fid.append(f)
+                ok.append(p is not None)
+                R, t = p if p is not None else (np.eye(3), np.zeros(3))
+                Rs.append(np.asarray(R, np.float32))
+                ts.append(np.asarray(t, np.float32))
+    finally:
+        del slam.track_monocular
+    rewinds = sum(1 for j, c in enumerate(calls)
+                  if c == "M" and (j == 0 or calls[j - 1] == "B"))
+    return (np.asarray(fid, np.int32), np.asarray(ok), np.stack(Rs),
+            np.stack(ts), np.asarray(rewinds, np.int64))
+
+
+def add_bench_reference(out_dir=DATA_DIR):
+    """Record, into the existing ref_full.npz, the JAX package's run of
+    bench.py's workload (ref_bench_* keys; every other key stays
+    byte-equal): the SLAM pass at the file's depth 4 over the map frames
+    through StagedSource(batch=4) (its map must equal the file's map, which
+    ref_pipe_* already holds), then on that warm system
+    activate_localization_mode, the extrapolate 1-pass serving config, the
+    warm-up localize_stream of one chunk (ref_bench_warm_*) and the first
+    BENCH_SPEC["n_recorded"] frames of the timed stream: emitted ids,
+    OK/None, poses and rewinds. Last, the 30-iteration whole-map BA
+    (window_all, max_cams = the map's keyframe capacity) on the file's map:
+    chi2 before (0 iterations) and after, and the keyframe poses."""
+    import time
+
+    import jax.numpy as jnp
+
+    from orb_slam2_aruco_tpu.geometry import camera as jcam
+    from orb_slam2_aruco_tpu.io import checkpoint
+    from orb_slam2_aruco_tpu.io import synthetic as jsyn
+    from orb_slam2_aruco_tpu.io.ingest import StagedSource
+    from orb_slam2_aruco_tpu.pipeline import mapping
+    from orb_slam2_aruco_tpu.pipeline.system import SlamSystem, TrackingState
+
+    t0 = time.perf_counter()
+    path = os.path.join(out_dir, "ref_full.npz")
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if not k.startswith("ref_bench_")}
+    cfg = SETUPS["full"]()[0]
+    if arrays["ref_cfg"] != np.asarray(json.dumps(dataclasses.asdict(cfg))):
+        raise RuntimeError("ref_full's ref_cfg is not bench.py's config")
+    frames, _ = pipe_scene("full", cfg, jsyn)
+    slam = SlamSystem(cfg)
+    for img, ts in StagedSource([(f, k / 30.0) for k, f in enumerate(frames)],
+                                batch=4):
+        slam.track_monocular(img, ts=ts)
+    slam.flush()
+    if slam.state is not TrackingState.OK:
+        raise RuntimeError(f"the bench's SLAM pass ended {slam.state}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "map.npz")
+        slam.save_map(mpath)
+        with np.load(mpath) as z:
+            differ = [f for f in slam.map._fields
+                      if not np.array_equal(z[f], arrays[f])]
+    if differ:
+        raise RuntimeError(f"the bench's SLAM pass left a map that differs "
+                           f"from the file's in {differ}")
+    t1 = time.perf_counter()
+    spec = BENCH_SPEC
+    slam.activate_localization_mode()
+    slam.cfg = serving_cfg(slam.cfg, spec["loc_seed_mode"],
+                           spec["loc_extrap_passes"],
+                           slam.cfg.tracking.loc_two_stage)
+    lf = slam.last_frame
+    vel = slam.vel if slam.vel is not None else (np.eye(3), np.zeros(3))
+    # the warm system's tracking state the stream starts from (TB_INPUTS)
+    warm_in = dict(R_last=slam.last_pose[0], t_last=slam.last_pose[1],
+                   vel_R=vel[0], vel_t=vel[1], last_uv=lf.kp_uv,
+                   last_desc=lf.desc, last_obs=slam.last_obs,
+                   last_valid=lf.kp_valid, last_octave=lf.kp_octave,
+                   last_angle=lf.kp_angle, ref_kf=slam.ref_kf,
+                   pt_visible=slam.map.pt_visible,
+                   pt_found=slam.map.pt_found)
+    out = {"spec": np.asarray(json.dumps(spec)),
+           "in_has_vel": np.asarray(slam.vel is not None),
+           "in_frame_id": np.asarray(slam.frame_id, np.int64)}
+    out.update({f"in_{k}": np.asarray(v) for k, v in warm_in.items()})
+    for pre, n in (("warm_", spec["chunk"]), ("", spec["n_recorded"])):
+        got = _record_bench_stream(slam, frames, n, spec["chunk"])
+        out.update({pre + k: v for k, v in
+                    zip(("fid", "ok", "R", "t", "rewinds"), got)})
+        print(f"  {pre or 'timed '}stream: {len(got[0])} frames, ids "
+              f"{int(got[0][0])}-{int(got[0][-1])}, {int((~got[1]).sum())} "
+              f"None, rewinds {int(got[4])}", flush=True)
+    t2 = time.perf_counter()
+    state = checkpoint.load_map(path)
+    cam = jcam.camera_from_config(cfg.camera)
+    ba_kw = dict(max_cams=cfg.map.max_keyframes, max_pts=spec["ba_max_pts"],
+                 window_all=True)
+    _, chi0 = mapping.bundle_adjust(state, jnp.asarray(0), cam, cfg,
+                                    iters=0, **ba_kw)
+    ba_state, chi = mapping.bundle_adjust(state, jnp.asarray(0), cam, cfg,
+                                          iters=spec["ba_iters"], **ba_kw)
+    live = np.flatnonzero(np.asarray(ba_state.kf_valid))
+    out.update(ba_chi0=np.asarray(chi0, np.float32),
+               ba_chi=np.asarray(chi, np.float32),
+               ba_kf=live.astype(np.int32),
+               ba_kf_R=np.asarray(ba_state.kf_Rcw)[live],
+               ba_kf_t=np.asarray(ba_state.kf_tcw)[live])
+    print(f"  BA: chi2 {float(chi0):.6g} -> {float(chi):.6g} over "
+          f"{len(live)} live keyframes", flush=True)
+    arrays.update({f"ref_bench_{k}": v for k, v in out.items()})
+    np.savez_compressed(path, **arrays)
+    print(f"{path}: bench recorded; SLAM pass {t1 - t0:.0f} s, streams "
+          f"{t2 - t1:.0f} s, BA {time.perf_counter() - t2:.0f} s",
+          flush=True)
+
+
 # the real-footage sequence (tests/test_ingest.py::test_video_25h7_two_pass_
 # ate's): tools/independent_seq.py's ARUCO_MIP_25h7 fly-by, written as an
 # MJPG video, decoded by the JAX VideoSource and run through the JAX
@@ -1402,11 +1562,12 @@ def add_dicts_reference(out_path=DICTS_PATH):
 
 if __name__ == "__main__":
     modes = ("--regen", "--serving", "--slam", "--loop", "--pipe", "--video",
-             "--dicts")
+             "--dicts", "--bench")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
                  "--regen|--serving|--slam|--loop|--pipe [small|full] "
-                 "[--parts quad,tb,stream,dstream] | --video | --dicts")
+                 "[--parts quad,tb,stream,dstream] | --video | --dicts | "
+                 "--bench")
     sys.path.insert(0, REPO)
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
@@ -1415,6 +1576,8 @@ if __name__ == "__main__":
         add_slam_reference(picked)
         add_loop_reference(picked)
         add_pipe_reference(picked)
+        if "full" in picked:
+            add_bench_reference()
     elif "--serving" in sys.argv:
         parts = SERVING_PARTS
         if "--parts" in sys.argv:
@@ -1428,6 +1591,8 @@ if __name__ == "__main__":
         add_video_reference()
     elif "--dicts" in sys.argv:
         add_dicts_reference()
+    elif "--bench" in sys.argv:
+        add_bench_reference()
     else:
         add_loop_reference(picked)
 
@@ -1556,10 +1721,11 @@ def _digest(path, skip):
     return len(keys), h.hexdigest()
 
 
-# the keys the full-width serving recordings added later (ref_full's
-# track_batch chunk and default serving form): the digests below leave them
-# out (tests/test_torch_serve.py holds every older key)
-LATER_SERVING_KEYS = {"small": (), "full": ("ref_tb_", "ref_dstream_")}
+# the keys the full-width recordings added later (ref_full's track_batch
+# chunk and default serving form, and bench.py's workload): the digests
+# below leave them out (tests/test_torch_serve.py holds every older key)
+LATER_SERVING_KEYS = {"small": (), "full": ("ref_tb_", "ref_dstream_",
+                                            "ref_bench_")}
 
 # sha256 over (name, dtype, shape, bytes) of every key a file held before
 # the loop recording (ref_loop_*) was added: --loop must leave them equal
