@@ -60,6 +60,13 @@ byte-equal; `--parts` picks some of the serving recordings):
         --regen|--serving|--slam|--loop|--pipe [small|full]
     python tests/test_torch_slice.py --serving full --parts tb,dstream
     python tests/test_torch_slice.py --bench
+    python tests/test_torch_slice.py --graft
+
+`add_graft_reference` (`--graft`) writes ref_graft.npz: __graft_entry__.py's
+flagship step, its capacity global-BA problem's digest and JAX's solves of
+it (as shipped, and with each segment summed apart, with what one float32
+ulp moves them). chip_smoke.py's graft phase and tests/test_torch_graft.py
+hold graft_entry_torch.py to it.
 
 `add_video_reference` (`--video`, needs cv2) writes a third file,
 ref_video.npz: the real-footage sequence of tests/test_ingest.py's 25h7
@@ -77,6 +84,7 @@ it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1560,15 +1568,181 @@ def add_dicts_reference(out_path=DICTS_PATH):
           f"{time.perf_counter() - t0:.0f} s", flush=True)
 
 
+# __graft_entry__.py's flagship step and its capacity-shaped global BA
+GRAFT_PATH = os.path.join(DATA_DIR, "ref_graft.npz")
+GRAFT_ITERS = 2
+GRAFT_MESH = 8
+
+
+@contextlib.contextmanager
+def jax_exact_segment_sums():
+    """JAX's ba_solve with each segment summed on its own
+    (jax.ops.segment_sum over the plan's segment ids) instead of as the
+    difference of a float32 running cumsum over all edges (optim/ba.py's
+    _seg_reduce). At the capacity problem the running cumsum reaches
+    ~1e18 (camera blocks of edges at the z = 0.02 cut), so the cumsum's
+    differences lose whole segments: the solve as shipped rejects both of
+    its LM steps on one device and moves the cameras by 1e5 m on 8. The
+    port sums each segment apart (index_add_); this is the JAX arithmetic
+    it is held to. Patches the module attribute for the block only."""
+    import jax.numpy as jnp
+
+    from orb_slam2_aruco_tpu.optim import ba as jba
+
+    def exact(plan, vals, num_segments):
+        E = vals.shape[0]
+        seg = jnp.searchsorted(plan.right, jnp.arange(E), side="right")
+        ids = jnp.zeros(E, jnp.int32).at[plan.perm].set(
+            seg.astype(jnp.int32))
+        return jax.ops.segment_sum(vals, ids, num_segments)
+
+    shipped = jba._seg_reduce
+    jba._seg_reduce = exact
+    try:
+        yield
+    finally:
+        jba._seg_reduce = shipped
+
+
+def _ulp(x, direction):
+    """x moved one float32 ulp toward +inf (direction 1) or -inf (-1)."""
+    import jax.numpy as jnp
+
+    return jnp.nextafter(x, jnp.inf if direction > 0 else -jnp.inf)
+
+
+def add_graft_reference(out_path=GRAFT_PATH):
+    """Record ref_graft.npz: JAX's __graft_entry__ on the CPU (the global
+    BA on the GRAFT_MESH virtual devices of tests/conftest.py's XLA flag).
+
+      entry_*   entry()'s step, jitted, on its own inputs: the frame's
+                valid keypoints (mask, pixels, octaves, descriptors) and
+                the step's Rcw, tcw and n_inliers;
+      prob_*    make_gba_problem(256, 20000, 16): the index arrays'
+                digest (graft_entry_torch.problem_digest) and the chi2
+                before the solve;
+      shipped_* ba_solve(iters=2) and the 8-device distributed_ba_solve
+                as the package ships them (chi2, Rcw, tcw; the single
+                solve's points, which it leaves where they were, as the
+                largest move);
+      exact_*   the same two solves under jax_exact_segment_sums (chi2,
+                Rcw, tcw, points): what the port is held to;
+      witness_* what one float32 ulp moves the exact single solve (its
+                poses' rotations and translations, its points, its
+                observations, each one ulp up and down): the
+                largest chi2 spread, R and t moves, the smallest share
+                of points within 5e-3; and what one ulp on the poses
+                moves the chi2 before the solve.
+    """
+    import time
+
+    import jax.numpy as jnp
+
+    import __graft_entry__ as jg
+    from chip_smoke import solve_errors
+    from orb_slam2_aruco_tpu.geometry.camera import camera_from_config
+    from orb_slam2_aruco_tpu.optim import ba as jba
+    from orb_slam2_aruco_tpu.parallel import dist_ba as jdist
+    from orb_slam2_aruco_tpu.pipeline.frontend import make_frame
+
+    import graft_entry_torch as tg
+
+    t0 = time.perf_counter()
+    step, args = jg.entry()
+    R, t, n_in = jax.jit(step)(*args)
+    cfg = jg._flagship_config()
+    frame = jax.jit(lambda im: make_frame(im, camera_from_config(cfg.camera),
+                                          cfg))(args[0])
+    valid = np.asarray(frame.kp_valid)
+    out = dict(entry_valid=valid,
+               entry_uv=np.asarray(frame.kp_uv)[valid],
+               entry_octave=np.asarray(frame.kp_octave)[valid],
+               entry_desc=np.asarray(frame.desc).view(np.int32)[valid],
+               entry_R=np.asarray(R), entry_t=np.asarray(t),
+               entry_n_inliers=np.asarray(n_in, np.int64))
+    print(f"  entry: {int(valid.sum())} keypoints, n_inliers {int(n_in)}",
+          flush=True)
+    t1 = time.perf_counter()
+    prob, cam = jg.make_gba_problem(K=tg.GBA_K, L=tg.GBA_L, M=tg.GBA_M)
+    dig = tg.problem_digest(prob)
+    chi0 = float(jba._total_chi2(prob, cam)[0])
+    chi0_ulp = [float(jba._total_chi2(prob._replace(Rcw=_ulp(prob.Rcw, d)),
+                                      cam)[0]) for d in (1, -1)]
+    out.update(prob_fields=np.asarray(tg.INDEX_FIELDS),
+               prob_sums=np.asarray([dig[f][0] for f in tg.INDEX_FIELDS],
+                                    np.int64),
+               prob_sha=np.asarray([dig[f][1] for f in tg.INDEX_FIELDS]),
+               prob_chi2_0=np.asarray(chi0),
+               witness_chi2_0=np.asarray(max(abs(c - chi0) / chi0
+                                             for c in chi0_ulp)))
+    mesh = jdist.make_mesh(GRAFT_MESH)
+    if len(mesh.devices.ravel()) != GRAFT_MESH:
+        raise RuntimeError(f"need {GRAFT_MESH} virtual CPU devices "
+                           f"(tests/conftest.py's XLA flag)")
+
+    def solves():
+        single = jba.ba_solve(prob, cam, iters=GRAFT_ITERS)
+        dist = jdist.distributed_ba_solve(prob, cam, mesh, iters=GRAFT_ITERS)
+        return single, dist
+
+    def fields(o):
+        return (np.asarray(o.Rcw), np.asarray(o.tcw), np.asarray(o.points),
+                np.asarray(o.chi2, np.float64))
+
+    s_single, s_dist = solves()
+    with jax_exact_segment_sums():
+        e_single, e_dist = solves()
+        nudged = [jba.ba_solve(prob._replace(**{f: _ulp(getattr(prob, f),
+                                                         d)}),
+                               cam, iters=GRAFT_ITERS)
+                  for f in ("Rcw", "tcw", "points", "e_uv")
+                  for d in (1, -1)]
+    for pre, o in (("shipped_single_", s_single), ("shipped_dist8_", s_dist),
+                   ("exact_single_", e_single), ("exact_dist8_", e_dist)):
+        R_, t_, P_, c_ = fields(o)
+        out.update({pre + "chi2": c_, pre + "R": R_, pre + "t": t_})
+        if pre.startswith("exact_"):
+            out[pre + "P"] = P_
+        else:
+            out[pre + "P_moved"] = np.asarray(np.abs(
+                P_ - np.asarray(prob.points)).max())
+    errs = [solve_errors(fields(o), fields(e_single)) for o in nudged]
+    out.update(witness_chi2=np.asarray(max(e[0] for e in errs)),
+               witness_R=np.asarray(max(e[1] for e in errs)),
+               witness_t=np.asarray(max(e[2] for e in errs)),
+               witness_pts_share=np.asarray(min(e[4] for e in errs)))
+    for pre in ("shipped_single_", "shipped_dist8_", "exact_single_",
+                "exact_dist8_"):
+        print(f"  {pre[:-1]}: chi2 {chi0:.6g} -> "
+              f"{float(out[pre + 'chi2']):.6g}", flush=True)
+    print(f"  one ulp moves the exact solve's chi2 by up to "
+          f"{float(out['witness_chi2']):.2%}, R / t by "
+          f"{float(out['witness_R']):.2e} / {float(out['witness_t']):.2e}; "
+          f"{float(out['witness_pts_share']):.4%} of its points stay "
+          f"within 5e-3; the chi2 before by "
+          f"{float(out['witness_chi2_0']):.2e}", flush=True)
+    out["seconds"] = np.asarray([t1 - t0, time.perf_counter() - t1])
+    np.savez_compressed(out_path, **out)
+    print(f"{out_path}: {os.path.getsize(out_path)} bytes; entry "
+          f"{t1 - t0:.0f} s, the global BA {time.perf_counter() - t1:.0f} s",
+          flush=True)
+
+
 if __name__ == "__main__":
     modes = ("--regen", "--serving", "--slam", "--loop", "--pipe", "--video",
-             "--dicts", "--bench")
+             "--dicts", "--bench", "--graft")
     if not any(m in sys.argv for m in modes):
         sys.exit("usage: python tests/test_torch_slice.py "
                  "--regen|--serving|--slam|--loop|--pipe [small|full] "
                  "[--parts quad,tb,stream,dstream] | --video | --dicts | "
-                 "--bench")
+                 "--bench | --graft")
     sys.path.insert(0, REPO)
+    if "--graft" in sys.argv:
+        # the distributed solve's virtual devices (tests/conftest.py's flag;
+        # read when the CPU backend starts, after this module's import)
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   "--xla_force_host_platform_device_count"
+                                   "=8").strip()
     picked = tuple(a for a in sys.argv[1:] if a in SETUPS) or ("small",
                                                                "full")
     if "--regen" in sys.argv:
@@ -1593,6 +1767,8 @@ if __name__ == "__main__":
         add_dicts_reference()
     elif "--bench" in sys.argv:
         add_bench_reference()
+    elif "--graft" in sys.argv:
+        add_graft_reference()
     else:
         add_loop_reference(picked)
 

@@ -29,11 +29,9 @@ from __future__ import annotations
 import collections
 import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, HERE)
+from torch_prof_common import HERE, event_ms, start
 
 CHUNK = 16
 REPS = 8
@@ -90,25 +88,6 @@ def stages(state, imgs, cam, cfg, ref_kf):
     ])
 
 
-def event_ms(fn, reps=REPS):
-    """The least milliseconds between CUDA events around fn() over `reps`
-    runs, after one warm-up run."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        best = min(best, a.elapsed_time(b))
-    return best
-
-
 def device_work(fn):
     """(device kernels and copies, their summed device ms) of one fn(),
     from bench_torch.device_spans (a torch.profiler trace of the device,
@@ -126,18 +105,10 @@ def main() -> int:
     import torch
 
     import bench_torch
-    from orb_slam2_aruco_tpu_torch import require_device
     from orb_slam2_aruco_tpu_torch.geometry.camera import camera_from_config
     from orb_slam2_aruco_tpu_torch.io import checkpoint
-    from orb_slam2_aruco_tpu_torch.kernels import build
 
-    dev = require_device("cuda")
-    build.build_all()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    dev, smi = start("cuda")
     cfg, frames = bench_torch.bench_scene(dev)
     state = checkpoint.load_map(
         os.path.join(HERE, "orb_slam2_aruco_tpu_torch", "data",
@@ -147,7 +118,7 @@ def main() -> int:
     ref_kf = torch.zeros((), dtype=torch.int64, device=dev)
     rows = {}
     for name, fn in stages(state, imgs, cam, cfg, ref_kf).items():
-        ms = event_ms(fn)
+        ms = event_ms(fn, dev, REPS)
         n, dev_ms = device_work(fn)
         rows[name] = dict(ms=ms, kernels=n, device_ms=dev_ms)
     null = rows.pop("null")
