@@ -223,16 +223,33 @@ capacity), in phases:
               directory, its quads equal to the committed library's. Then
               solve_damped (LU) against small_spd_solve (Cholesky) and the
               ms per call of each entry point.
- 16. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
+ 16. tools    the port's profilers as a user runs them on the card
+              (TOOL_RUNS), all at bench.py's configuration (960x540, 1000
+              features) against data/ref_full.npz, their depth cut and
+              not their width: tools/torch_prof_all.py (3 reps),
+              torch_prof_track_batch (a chunk of 4, one rep),
+              torch_prof_loc_variants (32 frames, one rep),
+              torch_prof_stages, torch_prof_frontend, torch_prof_orb_split
+              and torch_profile_detect (2 frames, one rep), and
+              torch_build_bench_map (the 32-frame sweep, into a temporary
+              directory). Each must print the card's nvidia-smi line first
+              and its returned dict as its last line, every number in it
+              finite; the built map must reload through load_map to the
+              digest the tool printed, its frames file must hold the
+              sweep; without cv2, tools/torch_independent_seq.py must
+              raise cv2's ImportError. Prints each tool's output and time;
+              the phase fails past TOOLS_BUDGET_S.
+ 17. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and as
               the last line {"ok": true, "device": {...}}.
 
 Launch counts are zeroed just before each of slice, quads, stream, serve
 (its default-form stream), slam, pipe (its timed depth-4 pass), bench (the
 whole of bench_torch's run), loop, dist (its system run), graft (one
-flagship step), video and api and read just after: each must have
+flagship step), video, api and tools and read just after: each must have
 launched the kernels of its path (K1-K3 on slice, stream, serve, slam,
-pipe, bench, loop, dist, graft, video and api, K4 on quads), and K1, K2
-and K3 once per frame built (api: exactly its count).
+pipe, bench, loop, dist, graft, video, api and tools, K4 on quads), and
+K1, K2 and K3 once per frame built (api: exactly its count; tools: the
+profilers call parts of make_frame apart).
 Any failed phase exits non-zero before the last line is printed.
 """
 
@@ -378,7 +395,26 @@ PATH_KERNELS = {
     "graft": ("fast", "patches", "cc_fused"),
     "video": ("fast", "patches", "cc_fused"),
     "api": ("fast", "patches", "cc_fused"),
+    "tools": ("fast", "patches", "cc_fused"),
 }
+
+# the tools phase: each profiler's arguments (tools/torch_*.py; the bench
+# map goes to a temporary directory), at bench.py's width with the fewest
+# frames and runs that still time every row and variant (the /32 variant
+# needs 32 frames), and the seconds past which the phase fails: the ~90 s
+# it is sized for, times the 1.7 by which host-clock times moved between
+# two H100 machines (PERF.md section 5)
+TOOL_RUNS = (
+    ("torch_prof_all", ["--reps", "3"]),
+    ("torch_prof_track_batch", ["--b", "4", "--reps", "1"]),
+    ("torch_prof_loc_variants", ["--n", "32", "--reps", "1"]),
+    ("torch_prof_stages", ["--b", "2", "--reps", "1"]),
+    ("torch_prof_frontend", ["--b", "2", "--reps", "1"]),
+    ("torch_prof_orb_split", ["--b", "2", "--reps", "1"]),
+    ("torch_profile_detect", ["--b", "2", "--reps", "1"]),
+    ("torch_build_bench_map", []),
+)
+TOOLS_BUDGET_S = 150
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and float32
 # operations/s outside the tensor cores, taken as the 32-bit scalar rate;
@@ -3158,6 +3194,88 @@ def api_phase(cfg, img_np, smi):
     return counts
 
 
+def tools_phase(smi):
+    """The port's profilers on the card (TOOL_RUNS), each through its
+    main(argv) as its command line calls it. Returns the kernel launch
+    counts of their runs."""
+    import importlib
+    import math
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_aruco_tpu_torch import kernels
+    from orb_slam2_aruco_tpu_torch.io import checkpoint
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_build_bench_map
+    import torch_independent_seq
+    import torch_prof_common
+
+    rets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "bench_map")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for name, argv in TOOL_RUNS:
+            if name == "torch_build_bench_map":
+                argv = argv + ["--out", base]
+            t1 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                ret = importlib.import_module(name).main(argv)
+            print(buf.getvalue(), end="", flush=True)
+            lines = buf.getvalue().strip().splitlines()
+            if lines[0] != smi:
+                raise PhaseError(f"{name} printed {lines[0]!r} first, not "
+                                 f"the card's line {smi!r}")
+            if json.loads(lines[-1]) != json.loads(json.dumps(ret)):
+                raise PhaseError(f"{name}: its last line is not the dict "
+                                 f"it returned")
+            nums = torch_prof_common.json_numbers(ret)
+            bad = [n for n in nums if not math.isfinite(n)]
+            if not nums or bad:
+                raise PhaseError(f"{name}: numbers not finite: {bad}")
+            rets[name] = ret
+            phase("tools", f"{name} {' '.join(argv)}: "
+                  f"{time.perf_counter() - t1:.1f} s")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+        state = checkpoint.load_map(base + ".npz", DEVICE)
+        digest = torch_build_bench_map.map_digest(state)
+        if digest != rets["torch_build_bench_map"]["digest"]:
+            raise PhaseError("the bench map torch_build_bench_map saved "
+                             "reloads to another map")
+        frames = torch_prof_common.scene(torch.device(DEVICE), False)[1]
+        with np.load(base + "_frames.npz") as z:
+            if not np.array_equal(z["frames"], np.stack(frames)):
+                raise PhaseError("torch_build_bench_map's frames file is "
+                                 "not the bench sweep")
+    phase("tools", f"kernel launches in the tools path: {counts}")
+    check_launches("tools", counts)
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        try:
+            torch_independent_seq.render_sequence(n_frames=1)
+        except ImportError as e:
+            phase("tools", f"without cv2 torch_independent_seq raises: {e}")
+        else:
+            raise PhaseError("torch_independent_seq ran without cv2")
+    variants = rets["torch_prof_loc_variants"]["variants"]
+    phase("tools", "loc variants (ms per frame): " + ", ".join(
+        f"{k} {v.get('ms_per_frame', 'not primed')}"
+        for k, v in variants.items()))
+    phase("tools", f"the bench map reloaded to digest {digest[:16]}; "
+          f"{seconds:.1f} s (budget {TOOLS_BUDGET_S} s)")
+    if seconds > TOOLS_BUDGET_S:
+        raise PhaseError(f"the tools phase took {seconds:.1f} s, past its "
+                         f"budget of {TOOLS_BUDGET_S} s")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"FAIL: {PKG}/ not found beside chip_smoke.py", flush=True)
@@ -3183,6 +3301,7 @@ def main() -> int:
         by_path["graft"] = graft_phase()
         by_path["video"] = video_phase()
         by_path["api"] = api_phase(cfg, imgs[0], smi)
+        by_path["tools"] = tools_phase(smi)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -19,6 +19,7 @@ from test_torch_slice import REPO
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
+import torch_prof_common  # noqa: E402
 import torch_prof_stream_host  # noqa: E402
 import torch_profile_chunk  # noqa: E402
 import torch_profile_mapping  # noqa: E402
@@ -39,16 +40,6 @@ MAPPING_STAGES = ("triangulate_vs_covisible", "cull_points",
                   "TOTAL per insert")
 
 
-def _numbers(x):
-    """Every number in a JSON value."""
-    if isinstance(x, dict):
-        return [n for v in x.values() for n in _numbers(v)]
-    if isinstance(x, list):
-        return [n for v in x for n in _numbers(v)]
-    return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) \
-        else []
-
-
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_runs_on_the_cpu_and_prints_its_json_last(name, capsys):
     mod, extra, keys = TOOLS[name]
@@ -60,7 +51,7 @@ def test_tool_runs_on_the_cpu_and_prints_its_json_last(name, capsys):
     assert last["card"] == "cpu" and last["small"] is True
     for k in keys:
         assert k in last, k
-    nums = _numbers(last)
+    nums = torch_prof_common.json_numbers(last)
     assert nums and all(math.isfinite(n) for n in nums)
     if name == "profile_mapping":
         assert all(s in last["ms"] for s in MAPPING_STAGES)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 
 from torch_prof_common import (
+    detect,
     event_ms,
     null_ms,
     parser,
@@ -48,7 +49,6 @@ def main(argv=None) -> dict:
     import numpy as np
     import torch
 
-    from orb_slam2_aruco_tpu_torch.ops.aruco import detector
     from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
 
     args = parser(__doc__).parse_args(argv)
@@ -60,15 +60,6 @@ def main(argv=None) -> dict:
     cam, a = system.cam, cfg.aruco
     plain = cfg.replace(aruco=dataclasses.replace(a, use_pallas_cc=False))
 
-    def detect():
-        return [detector.detect_markers(
-            im.float(), a.dictionary, max_quads=a.max_quad_candidates,
-            adaptive_win=a.adaptive_thresh_win,
-            adaptive_c=a.adaptive_thresh_c, min_area=a.min_quad_side_px**2,
-            cell_px=a.warp_cell_px, cc_iters=a.cc_iters,
-            downsample=a.detect_downsample, refine=False,
-            use_pallas_cc=a.use_pallas_cc) for im in imgs]
-
     null = null_ms(imgs, dev, reps)
     calls = {
         "track_batch (frontend + cascade)": lambda: system._run_chunk(imgs),
@@ -76,7 +67,8 @@ def main(argv=None) -> dict:
                                         for im in imgs],
         "frontend (plain CC)": lambda: [make_frame(im, cam, plain)
                                         for im in imgs],
-        "detector (K3 route)": detect,
+        "detector (K3 route)": lambda: [detect(im.float(), a, refine=False)
+                                        for im in imgs],
     }
     rows = {name: (event_ms(fn, dev, reps) - null) / chunk
             for name, fn in calls.items()}
