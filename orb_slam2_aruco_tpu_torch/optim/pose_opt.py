@@ -10,7 +10,8 @@ The JAX loop stops a round after two stalled iterations (a `while_loop`).
 Here every round runs its full iteration budget with the updates masked off
 once the round has stalled: the same poses, and no host sync per iteration.
 Point and marker-corner edges share one edge array; the residuals at the
-current pose are carried from the iteration that accepted it.
+current pose are carried from the iteration that accepted it. Every call
+is the span pose_lm (utils/telemetry.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from orb_slam2_aruco_tpu_torch.geometry.lie import (
 )
 from orb_slam2_aruco_tpu_torch.optim import residuals as res
 from orb_slam2_aruco_tpu_torch.optim.lm import solve_damped
+from orb_slam2_aruco_tpu_torch.utils.telemetry import annotate
 
 
 class PoseOptResult(NamedTuple):
@@ -37,6 +39,7 @@ class PoseOptResult(NamedTuple):
     chi2: torch.Tensor        # [] final total chi2
 
 
+@annotate("pose_lm")
 def optimize_pose(Rcw0, tcw0, cam: Camera, pts_w, uv, mask, inv_sigma2,
                   marker_corners_w=None, marker_uv=None, marker_mask=None,
                   marker_weight: float = 25.0, chi2_th: float = 5.991,

@@ -37,6 +37,11 @@ checkpoint. With `optim.distributed_gba` the global BA slices shard their
 observations over a device list (`_gba_mesh`, by default every CUDA
 device; parallel/dist_ba.py) when it has more than one entry; one card
 takes the single-device branch, as the reference does on one chip.
+
+Each `track_monocular` call is the root span `frame` (utils/telemetry.py),
+with its frame id; an insert is the span mapping.insert and the mapping
+phase's local BA mapping.local_ba. Every deliberate host read goes through
+`tracking.host_sync` / `host_read` / `HostCopy`, which count and time it.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from orb_slam2_aruco_tpu_torch.pipeline import (
     tracking,
 )
 from orb_slam2_aruco_tpu_torch.pipeline.frontend import Frame, make_frame
+from orb_slam2_aruco_tpu_torch.utils.telemetry import annotate
 from orb_slam2_aruco_tpu_torch.worldmap.state import empty_map
 
 
@@ -162,11 +168,12 @@ class SlamSystem:
         trajectory records carry the authoritative per-frame state."""
         fid = self.frame_id
         self.frame_id += 1
-        img = self._on_device(img)
-        if self.state is TrackingState.OK and self._pipelined():
-            return self._track_pipelined(img, fid, ts, is_img=True)
-        frame = make_frame(img, self.cam, self.cfg)
-        return self._step_frame(frame, fid, ts)
+        with annotate("frame", {"frame_id": fid}):
+            img = self._on_device(img)
+            if self.state is TrackingState.OK and self._pipelined():
+                return self._track_pipelined(img, fid, ts, is_img=True)
+            frame = make_frame(img, self.cam, self.cfg)
+            return self._step_frame(frame, fid, ts)
 
     def _pipelined(self) -> bool:
         return (self.cfg.tracking.pipeline_depth > 0
@@ -230,8 +237,7 @@ class SlamSystem:
             self._scalar(self.ref_kf), self.cam, cfg,
         )
         # one device->host read per frame: control scalars + pose
-        tracking.SYNCS["count"] += 1
-        ctrl = out.ctrl.cpu().numpy()
+        ctrl = tracking.host_read(out.ctrl)
         n_map_inliers = int(ctrl[0])
         if ctrl[2] > 0.5:
             self.stats["aruco_seeded"] += 1
@@ -543,6 +549,7 @@ class SlamSystem:
             victim, self._pending_cull = self._pending_cull, None
             self._read_victim(victim)
 
+    @annotate("mapping.insert")
     def _insert_keyframe(self, frame, Rcw, tcw, obs_point, slots, fid, ts,
                          mk_old=None, sync=True):
         """Insert a keyframe and its mapping phase (LocalMapping::Run): run
@@ -633,10 +640,11 @@ class SlamSystem:
                 if not self._mapped(k):
                     return
                 T_pre = (self.map.kf_Rcw[k], self.map.kf_tcw[k])
-                self.map, _ = mapping.bundle_adjust(
-                    self.map, k, self.cam, cfg,
-                    max_cams=cfg.map.local_ba_window, max_pts=2048,
-                    iters=iters, max_fixed=cfg.map.local_ba_fixed_ring)
+                with annotate("mapping.local_ba"):
+                    self.map, _ = mapping.bundle_adjust(
+                        self.map, k, self.cam, cfg,
+                        max_cams=cfg.map.local_ba_window, max_pts=2048,
+                        iters=iters, max_fixed=cfg.map.local_ba_fixed_ring)
                 if first:
                     self.stats["ba_runs"] += 1
                 if not sync:
@@ -895,8 +903,7 @@ class SlamSystem:
         self.last_pose = (tr.Rcw, tr.tcw)
         self.vel = None
         # one device->host read for the returned pose
-        tracking.SYNCS["count"] += 1
-        pose = torch.cat([tr.Rcw.reshape(-1), tr.tcw]).cpu().numpy()
+        pose = tracking.host_read(torch.cat([tr.Rcw.reshape(-1), tr.tcw]))
         return pose[:9].reshape(3, 3), pose[9:]
 
     def _local_map(self, frame: Frame, slots, tr0):
@@ -954,8 +961,7 @@ class SlamSystem:
         """The one control-vector read of a chunk. Records the frames up to
         the first whose local-map inliers fall below the gate; returns
         ([(fid, ts, (Rcw, tcw))], index of that frame or None)."""
-        tracking.SYNCS["count"] += 1
-        c = ctrls.cpu().numpy()
+        c = tracking.host_read(ctrls)
         out = []
         for j, (fid, ts) in enumerate(metas):
             if c[j, 0] < self.cfg.tracking.min_matches_local_map:

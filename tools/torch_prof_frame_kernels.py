@@ -96,8 +96,11 @@ def main() -> int:
         for _ in range(FRAMES):
             make_frame(img, cam, cfg)
             torch.cuda.synchronize()
+    # make_frame's spans are drawn on the device's timeline too; they are
+    # no device work
     evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: e.time_range.start)
     print(f"detect_downsample={args.downsample}: {len(evs) / FRAMES:.1f} "
           f"device kernels and copies per frame")
