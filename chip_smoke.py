@@ -10,7 +10,7 @@ capacity), in phases:
 
   1. device   CUDA must be available (no CPU fallback); prints the card's
               name and power limit as nvidia-smi reports them.
-  2. build    compiles the four CUDA kernels from kernels/csrc (one nvcc
+  2. build    compiles the five CUDA kernels from kernels/csrc (one nvcc
               per source, all at once).
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it on a rendered 960x540 frame: K1
@@ -20,13 +20,16 @@ capacity), in phases:
               540x960 full-resolution one (the default
               detect_downsample=1), K4 one label sweep at both sizes
               (initial labels, and at 270x480 also labels after one
-              round). Outputs must be equal (K1: in the unmasked
-              interior). Median times from CUDA events, beside each
-              kernel's bound and, where one PyTorch call computes the same
-              function, that call's time; for each kernel also the kernel
-              alone (events around the bare launch), and a torch.profiler
-              count that must show one device kernel per K1 frame, K2
-              frame, K3 call and K4 sweep.
+              round), K5 the pose LM on a seeded problem of the
+              cascade's shape (1000 keypoint slots, 16 markers). Outputs
+              must be equal (K1: in the unmasked interior; K5: within
+              tests/test_torch_pose_lm_kernel.py's limits). Median times
+              from CUDA events, beside each kernel's bound and, where one
+              PyTorch call computes the same function, that call's time;
+              for each kernel also the kernel alone (events around the
+              bare launch), and a torch.profiler count that must show one
+              device kernel per K1 frame, K2 frame, K3 call, K4 sweep and
+              K5 call.
   4. slice    per-frame localization: SlamSystem.load_map(data/ref_full.npz)
               + track_monocular on the 32 recorded frames (rendered here by
               the port's io/synthetic). States must equal the JAX package's,
@@ -379,21 +382,23 @@ KERNEL_META = {
                  "orb_slam2_aruco_tpu/ops/pallas_cc_fused.py:185"),
     "cc_propagate": ("orb_slam2_aruco_tpu_torch/kernels/csrc/cc_propagate.cu",
                      "orb_slam2_aruco_tpu/ops/pallas_cc.py:103"),
+    "pose_lm": ("orb_slam2_aruco_tpu_torch/kernels/csrc/pose_lm.cu",
+                "orb_slam2_aruco_tpu/optim/pose_opt.py:51 (XLA, no Pallas)"),
 }
 
 # the kernels each path must launch
 PATH_KERNELS = {
-    "slice": ("fast", "patches", "cc_fused"),
+    "slice": ("fast", "patches", "cc_fused", "pose_lm"),
     "quads": ("cc_propagate",),
-    "stream": ("fast", "patches", "cc_fused"),
-    "serve": ("fast", "patches", "cc_fused"),
-    "slam": ("fast", "patches", "cc_fused"),
-    "pipe": ("fast", "patches", "cc_fused"),
-    "bench": ("fast", "patches", "cc_fused"),
-    "loop": ("fast", "patches", "cc_fused"),
-    "dist": ("fast", "patches", "cc_fused"),
-    "graft": ("fast", "patches", "cc_fused"),
-    "video": ("fast", "patches", "cc_fused"),
+    "stream": ("fast", "patches", "cc_fused", "pose_lm"),
+    "serve": ("fast", "patches", "cc_fused", "pose_lm"),
+    "slam": ("fast", "patches", "cc_fused", "pose_lm"),
+    "pipe": ("fast", "patches", "cc_fused", "pose_lm"),
+    "bench": ("fast", "patches", "cc_fused", "pose_lm"),
+    "loop": ("fast", "patches", "cc_fused", "pose_lm"),
+    "dist": ("fast", "patches", "cc_fused", "pose_lm"),
+    "graft": ("fast", "patches", "cc_fused", "pose_lm"),
+    "video": ("fast", "patches", "cc_fused", "pose_lm"),
     "api": ("fast", "patches", "cc_fused"),
     "tools": ("fast", "patches", "cc_fused"),
 }
@@ -426,6 +431,16 @@ SCALAR_OPS_PER_S = 67e12
 # threshold compares, two subtract-clamp-add chains), four arc-of-9 tests x
 # 17 bit operations, the 3x3 NMS and bonus (11)
 FAST_OPS_PER_PX = 16 * 12 + 4 * 17 + 11
+# K5 float32 operations per edge and pass over the edges (an FMA counts
+# two): the residual (27), chi2 (5), the Huber weight (5), the projection
+# Jacobian (17), the 21 + 6 weighted sums of J^T W J and J^T W r (120); and
+# the fewest passes a round makes (its start and two stalled candidates),
+# so that the bound counts no work the inputs may not need
+POSE_LM_OPS_PER_EDGE = 27 + 5 + 5 + 17 + 120
+POSE_LM_MIN_PASSES_PER_ROUND = 3
+# K5's problem: the cascade's shape at the bench configuration (1000
+# keypoint slots, the frame's 16 marker slots), seeded
+POSE_LM_SEED, POSE_LM_MARKERS = 2147483911, 16
 
 
 class PhaseError(Exception):
@@ -494,8 +509,11 @@ def one_kernel_per_call(calls, reps=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+    # a program span's profiler range is drawn on the device's timeline
+    # too; it is no device work
     evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: e.time_range.start)
     seen = [(e.name, e.time_range.end - e.time_range.start) for e in evs]
     out = {}
@@ -926,6 +944,58 @@ def kernel_phase(cfg, img_np):
     phase("kernels", f"one whole quad_candidates(use_pallas_cc=True) at "
           f"{tuple(binary.shape)}: {quad_ms:.4f} ms")
 
+    # K5: the whole pose LM, one launch, against the plain LM and its
+    # own one-ulp spread (tests/test_torch_pose_lm_kernel.py)
+    import pytest
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_pose_lm_kernel import held_to_plain, pose_problem
+
+    from orb_slam2_aruco_tpu_torch.optim import pose_opt
+
+    prob = pose_problem(POSE_LM_SEED, n=ocfg.num_features,
+                        a=POSE_LM_MARKERS, device=DEVICE)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            got = held_to_plain(prob, mp)
+    except AssertionError as e:
+        raise PhaseError(f"K5 pose_lm differs from its plain version: {e}")
+    want = pose_opt.optimize_pose_torch(**prob)
+    err = float((got.tcw - want.tcw).abs().max())
+    ms = cuda_ms(lambda: pose_opt.optimize_pose(**prob))
+    plain = cuda_ms(lambda: pose_opt.optimize_pose_torch(**prob), reps=5)
+    # the kernel alone: the bare launcher into prepared outputs
+    outs = [torch.empty(s, dtype=d, device=DEVICE) for s, d in (
+        ((3, 3), torch.float32), ((3,), torch.float32),
+        ((ocfg.num_features,), torch.bool), ((), torch.int64),
+        ((), torch.float32))]
+    cam = prob["cam"]
+    launch = kernels.build.launcher("pose_lm")
+    stream = torch.cuda.current_stream().cuda_stream
+    lm_args = [prob["Rcw0"], prob["tcw0"], cam.fx, cam.fy, cam.cx, cam.cy,
+               prob["pts_w"], prob["uv"], prob["mask"], prob["inv_sigma2"]]
+    mk_args = [prob["marker_corners_w"], prob["marker_uv"],
+               prob["marker_mask"]]
+    alone = kernel_alone_ms(lambda: launch(
+        *[x.data_ptr() for x in lm_args], ocfg.num_features,
+        *[x.data_ptr() for x in mk_args], POSE_LM_MARKERS, 25.0, 5.991,
+        2.4477, 1e-3, 4, 10, *[x.data_ptr() for x in outs], stream))
+    edges = ocfg.num_features + 4 * POSE_LM_MARKERS
+    # bytes: the edge inputs once, the outputs; operations: the fewest
+    # passes 4 rounds can make, and the last pass (chi2 alone, 32 per edge)
+    nbytes = (ocfg.num_features * (12 + 8 + 1 + 4)
+              + POSE_LM_MARKERS * (4 * (12 + 8) + 1) + 64
+              + 48 + ocfg.num_features + 8 + 4)
+    ops = edges * (POSE_LM_OPS_PER_EDGE * 4 * POSE_LM_MIN_PASSES_PER_ROUND
+                   + 32)
+    msg = report("pose_lm", err, ms, plain, nbytes, ops, None)
+    out["pose_lm"]["kernel_ms"] = alone
+    phase("kernels", f"K5 pose_lm: within the plain LM's limits on "
+          f"{ocfg.num_features} keypoint slots + {POSE_LM_MARKERS} markers "
+          f"(seed {POSE_LM_SEED}; chi2 {float(got.chi2):.6g}, plain "
+          f"{float(want.chi2):.6g}; {int(got.n_inliers)} inliers); per "
+          f"call (one launch) {msg}; kernel alone {alone:.4f} ms")
+
     prof = one_kernel_per_call(
         [("K1 frame", "fast_score_nms",
           lambda: fast.fast_score_nms_levels(levels, *t_args)),
@@ -936,9 +1006,11 @@ def kernel_phase(cfg, img_np):
            for b in binaries.values()]
         + [(f"K4 sweep {tuple(lab.shape)}", "cc_propagate",
             lambda lab=lab: cc_propagate.cc_propagate_cuda(lab, 1, k, tile))
-           for lab in first_labels.values()])
+           for lab in first_labels.values()]
+        + [("K5 call", "pose_lm_kernel",
+            lambda: pose_opt.optimize_pose(**prob))])
     phase("kernels", f"profiler: one device kernel per K1 frame, K2 frame, "
-          f"K3 call and K4 sweep; mean device us "
+          f"K3 call, K4 sweep and K5 call; mean device us "
           f"{({name: round(us, 2) for name, us in prof.items()})}")
     return out
 
@@ -975,7 +1047,8 @@ def slice_phase(path, cfg, ref, imgs):
     total = time.perf_counter() - t_all
     counts = dict(kernels.launch_counts)
     syncs = tracking.SYNCS["count"]
-    phase("slice", f"kernel launches in the per-frame path: {counts}")
+    phase("slice", f"kernel launches in the per-frame path: {counts}; "
+          f"K5 pose_lm {counts['pose_lm'] / len(imgs):.2f} per frame")
     check_launches("slice", counts)
     check_frames_built("slice", counts, len(imgs))
 
@@ -3005,10 +3078,11 @@ def api_phase(cfg, img_np, smi):
     phase("api", f"kernel launches in the api path: {counts}")
     check_launches("api", counts)
     # K1 once per make_frame and per K1-route detect_level, K2 once per
-    # make_frame, keypoint_angles and describe, K3 once per make_frame
+    # make_frame, keypoint_angles and describe, K3 once per make_frame; no
+    # pose LM
     n = len(scenes)
     want = {"fast": n + 2, "patches": n + 2, "cc_fused": n,
-            "cc_propagate": 0}
+            "cc_propagate": 0, "pose_lm": 0}
     if counts != want:
         raise PhaseError(f"api path launch counts {counts}, expected {want}")
 

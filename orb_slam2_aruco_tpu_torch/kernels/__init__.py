@@ -12,7 +12,11 @@ The kernels replace the TPU kernels of orb_slam2_aruco_tpu:
   cc_fused  <- ops/pallas_cc_fused.py::cc_fused          (ops/cc_fused.py)
   cc_propagate <- ops/pallas_cc.py::cc_propagate_pallas  (ops/cc_propagate.py)
 
-The Python bindings live beside the plain PyTorch versions in those ops
+and one runs what the JAX package left to XLA as one jitted program:
+
+  pose_lm   <- optim/pose_opt.py::optimize_pose         (optim/pose_opt.py)
+
+The Python bindings live beside the plain PyTorch versions in those
 modules. `launch_counts` counts, per kernel, the launches on the card: each
 binding adds one right after a launch succeeds, and nowhere else.
 """
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 from orb_slam2_aruco_tpu_torch.kernels import build  # noqa: F401
 
-KERNELS = ("fast", "patches", "cc_fused", "cc_propagate")
+KERNELS = ("fast", "patches", "cc_fused", "cc_propagate", "pose_lm")
 
 # dynamic shared memory a block may opt into on the H100 (sm_90)
 SMEM_LIMIT = 232448

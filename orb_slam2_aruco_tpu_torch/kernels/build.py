@@ -39,6 +39,8 @@ SIGNATURES = {
     "patches": ("extract_patches_launch", [P, I, P, P]),
     "cc_fused": ("cc_fused_launch", [P, I, I, I, I, P, P, P, P, I, I, P]),
     "cc_propagate": ("cc_propagate_launch", [P, P, I, I, I, I, I, I, P]),
+    "pose_lm": ("pose_lm_launch", [P, P, P, P, P, P, P, P, P, P, I, P, P, P,
+                                   I, F, F, F, F, I, I, P, P, P, P, P, P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -19,6 +19,7 @@ import torch
 from orb_slam2_aruco_tpu_torch import kernels
 from orb_slam2_aruco_tpu_torch.kernels import build
 from orb_slam2_aruco_tpu_torch.ops import cc_fused, cc_propagate, fast, orb
+from orb_slam2_aruco_tpu_torch.optim import pose_opt
 
 torch.set_num_threads(1)    # as in test_torch_slice.py: small CPU tensors
 
@@ -266,9 +267,12 @@ def test_each_cuda_launch_is_counted_once(cuda_device):
     cc_fused.cc_fused(img > 128)
     labels = torch.as_tensor(init_labels(spiral(64)), device=cuda_device)
     cc_propagate.cc_propagate(labels, 3, 16, 128)    # one launch per sweep
+    from test_torch_pose_lm_kernel import pose_problem
+    pose_opt.optimize_pose(**pose_problem(1, n=64, a=4,
+                                          device=cuda_device))  # one launch
     fast.fast_score_nms_torch(img, T_HI, T_LO)       # plain: not counted
     assert kernels.launch_counts == {"fast": 1, "patches": 1, "cc_fused": 1,
-                                     "cc_propagate": 3}
+                                     "cc_propagate": 3, "pose_lm": 1}
 
 
 @pytest.mark.cuda
