@@ -235,6 +235,7 @@ class SlamSystem:
             self.last_pose[1], lf.kp_uv, lf.desc, self.last_obs, lf.kp_valid,
             lf.kp_octave, lf.kp_angle,
             self._scalar(self.ref_kf), self.cam, cfg,
+            self.localization_only,            # final_map
         )
         # one device->host read per frame: control scalars + pose
         ctrl = tracking.host_read(out.ctrl)
@@ -876,7 +877,7 @@ class SlamSystem:
             if tracking.host_sync(kf_mk >= 0):
                 tr0 = tracking.track_vs_keyframe(self.map, frame, slots, kf_mk,
                                                  R0, t0, self.cam, cfg)
-                tr, vis_found = self._local_map(frame, slots, tr0)
+                tr, vis_found, best_kf = self._local_map(frame, slots, tr0)
         if tr is None:
             idx, _, keep = tracking.reloc_candidates(self.map, frame, cfg)
             C = idx.shape[0]
@@ -888,7 +889,8 @@ class SlamSystem:
                                           int(cands[c]), self.cam, cfg)
                 if int(tracking.host_read(cand.n_inliers)) \
                         >= cfg.tracking.min_inliers_track:
-                    tr, vis_found = self._local_map(frame, slots, cand)
+                    tr, vis_found, best_kf = self._local_map(frame, slots,
+                                                             cand)
                     if tr is not None:
                         break
         if tr is None:
@@ -902,25 +904,33 @@ class SlamSystem:
         self.last_obs = tr.obs_point
         self.last_pose = (tr.Rcw, tr.tcw)
         self.vel = None
-        # one device->host read for the returned pose
-        pose = tracking.host_read(torch.cat([tr.Rcw.reshape(-1), tr.tcw]))
-        return pose[:9].reshape(3, 3), pose[9:]
+        # one device->host read: the returned pose and the new reference
+        # keyframe, the one sharing the most points with the frame
+        # (TrackLocalMap's UpdateLocalKeyFrames after Relocalization,
+        # Tracking.cc:1555-1663); the next frame has no velocity, and its
+        # TrackReferenceKeyFrame fallback matches against that keyframe
+        pose = tracking.host_read(torch.cat([
+            tr.Rcw.reshape(-1), tr.tcw, best_kf.to(tr.tcw.dtype).reshape(1)]))
+        if pose[12] >= 0:
+            self.ref_kf = int(pose[12])
+        return pose[:9].reshape(3, 3), pose[9:12]
 
     def _local_map(self, frame: Frame, slots, tr0):
         """The relocalized pose `tr0` through the local map: (TrackResult,
-        (pt_visible, pt_found)) at reloc_min_inliers inliers or more (the
+        (pt_visible, pt_found), the keyframe sharing the most points with
+        the frame or -1) at reloc_min_inliers inliers or more (the
         recently-relocalized TrackLocalMap gate, Tracking.cc:1286-1288),
-        else (None, None)."""
+        else (None, None, None)."""
         cfg = self.cfg
-        pt_local, _ = tracking.local_point_mask(
+        pt_local, best_kf = tracking.local_point_mask(
             self.map, tr0.obs_point, cfg.tracking.max_local_keyframes)
         tr, vis_found = tracking.track_local_map(
             self.map, frame, slots, tr0.Rcw, tr0.tcw, tr0.obs_point,
             self.cam, cfg, pt_candidates=pt_local)
         if not tracking.host_sync(tr.n_inliers
                                   >= cfg.tracking.reloc_min_inliers):
-            return None, None
-        return tr, vis_found
+            return None, None, None
+        return tr, vis_found, best_kf
 
     # ------------------------------------------------------------------
     def _serving(self) -> bool:

@@ -444,17 +444,31 @@ def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
             (new_visible, new_found))
 
 
+def marker_old(state: MapState, slots, cfg: SlamConfig,
+               final_map: bool):
+    """[A] bool: the bound markers tracking leaves out of its marker seeds.
+    mvbOldAruco (old_marker_flags) keeps SLAM-mode tracking off markers a
+    loop correction has yet to move. On a `final_map` (localization mode:
+    the per-frame facade and every track_batch mode) no loop is closed, so
+    no marker counts as old, where every marker mapped more than
+    min_kfs_between_loops keyframes before the newest would otherwise be."""
+    if final_map:
+        return torch.zeros_like(slots, dtype=torch.bool)
+    return old_marker_flags(state, slots, cfg.loop.min_kfs_between_loops)
+
+
 def _cascade_seed(state: MapState, frame: Frame, R_pred, t_pred, R_last,
                   t_last, last_uv, last_desc, last_obs, last_valid,
                   last_octave, last_angle, ref_kf, cam: Camera,
-                  cfg: SlamConfig, seed_budget: bool = False):
+                  cfg: SlamConfig, seed_budget: bool = False,
+                  final_map: bool = False):
     """Marker seed + motion-model tracking with the widened-window and
     reference-keyframe fallbacks (Tracking.cc:233-258). Returns (tr, slots,
-    old, ok_a, need_ref)."""
+    old, ok_a, need_ref); `final_map`: see marker_old."""
     last = (last_uv, last_desc, last_obs, last_valid, last_octave, last_angle)
     with annotate("tracking.motion"):
         slots = bind_markers(state, frame)
-        old = old_marker_flags(state, slots, cfg.loop.min_kfs_between_loops)
+        old = marker_old(state, slots, cfg, final_map)
         ok_a, R_a, t_a, _ = aruco_pose_candidate(state, frame, slots, cam,
                                                  cfg, old=old)
         R0 = torch.where(ok_a, R_a, R_pred)
@@ -535,13 +549,15 @@ def _result_from_track(state: MapState, frame: Frame, tr, slots, old, ok_a,
 
 def track_full(state: MapState, frame: Frame, R_pred, t_pred, R_last, t_last,
                last_uv, last_desc, last_obs, last_valid, last_octave,
-               last_angle, ref_kf, cam: Camera,
-               cfg: SlamConfig) -> FullTrackResult:
+               last_angle, ref_kf, cam: Camera, cfg: SlamConfig,
+               final_map: bool = False) -> FullTrackResult:
     """The whole per-frame OK-state cascade (Track(), Tracking.cc:192-492,
-    minus keyframe creation)."""
+    minus keyframe creation); `final_map`: localization mode, in which no
+    marker counts as old (marker_old)."""
     tr, slots, old, ok_a, need_ref = _cascade_seed(
         state, frame, R_pred, t_pred, R_last, t_last, last_uv, last_desc,
-        last_obs, last_valid, last_octave, last_angle, ref_kf, cam, cfg)
+        last_obs, last_valid, last_octave, last_angle, ref_kf, cam, cfg,
+        final_map=final_map)
     return _cascade_refine(state, frame, tr, slots, old, ok_a, need_ref,
                            ref_kf, cam, cfg)
 
@@ -608,6 +624,8 @@ def track_batch(state: MapState, imgs, R_last, t_last, vel_R, vel_t, has_vel,
         `_cascade_seed` has.
       * sequential: `track_full` frame after frame, each on the previous
         frame's visible/found counts.
+
+    The map is final in every mode: no marker counts as old (marker_old).
     """
     frames = [make_frame(im, cam, cfg) for im in imgs]
     tcfg = cfg.tracking
@@ -620,8 +638,7 @@ def track_batch(state: MapState, imgs, R_last, t_last, vel_R, vel_t, has_vel,
             R_seed = torch.where(has_vel, Rp, R_last)
             t_seed = torch.where(has_vel, tp, t_last)
             slots = bind_markers(state, frame)
-            # localization against a final map: no marker counts as old
-            old = torch.zeros_like(slots, dtype=torch.bool)
+            old = marker_old(state, slots, cfg, final_map=True)
             ok_a, R_a, t_a, _ = aruco_pose_candidate(
                 state, frame, slots, cam, cfg, old=old,
                 err_th=tcfg.loc_seed_marker_err)
@@ -648,7 +665,8 @@ def track_batch(state: MapState, imgs, R_last, t_last, vel_R, vel_t, has_vel,
             Rp, tp = se3_compose(vR, vt, Rl, tl)
             tr, slots, old, ok_a, need_ref = _cascade_seed(
                 state, frame, torch.where(hv, Rp, Rl), torch.where(hv, tp, tl),
-                Rl, tl, *last, ref_kf, cam, cfg, seed_budget=True)
+                Rl, tl, *last, ref_kf, cam, cfg, seed_budget=True,
+                final_map=True)
             vR, vt = se3_compose(tr.Rcw, tr.tcw, *se3_inverse(Rl, tl))
             # a mid-chunk failure falls back to the last pose, not to a
             # garbage constant-velocity seed
@@ -667,7 +685,7 @@ def track_batch(state: MapState, imgs, R_last, t_last, vel_R, vel_t, has_vel,
         Rp, tp = se3_compose(vR, vt, Rl, tl)
         out = track_full(st, frame, torch.where(hv, Rp, Rl),
                          torch.where(hv, tp, tl), Rl, tl, *last, ref_kf, cam,
-                         cfg)
+                         cfg, final_map=True)
         vR, vt = se3_compose(out.Rcw, out.tcw, *se3_inverse(Rl, tl))
         hv = out.n_inliers >= tcfg.min_matches_local_map
         Rl, tl = out.Rcw, out.tcw

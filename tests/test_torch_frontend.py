@@ -7,6 +7,7 @@ test states its tolerance and why.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -314,8 +315,11 @@ def _kp_map(uv, octave, valid):
             for i, ((u, v), o, ok) in enumerate(zip(uv, octave, valid)) if ok}
 
 
-def test_make_frame_matches_jax(small_frames):
-    cfg, tcfg, imgs = small_frames
+def _frames_match_jax(cfg, tcfg, imgs, min_markers):
+    """make_frame of both packages on each image: marker ids and IPPE gates
+    equal, corners within 0.05 px; >= 95 % of JAX's keypoints at identical
+    (x, y, octave), >= 95 % of their descriptors identical (median Hamming
+    0); BoW cosine >= 0.99."""
     jc = jcam.camera_from_config(cfg.camera)
     tc = tcam.camera_from_config(tcfg.camera)
     for img in imgs:
@@ -325,7 +329,7 @@ def test_make_frame_matches_jax(small_frames):
         np.testing.assert_array_equal(_n(ft.mk_ids), np.asarray(fj.mk_ids))
         np.testing.assert_array_equal(_n(ft.mk_good), np.asarray(fj.mk_good))
         ok = np.asarray(fj.mk_valid)
-        assert ok.sum() >= 3
+        assert ok.sum() >= min_markers
         np.testing.assert_allclose(_n(ft.mk_corners)[ok],
                                    np.asarray(fj.mk_corners)[ok], atol=0.05)
         # keypoints: >= 95 % of JAX's at identical (x, y, octave)
@@ -343,6 +347,42 @@ def test_make_frame_matches_jax(small_frames):
         assert same >= 0.95 and np.median(ham) == 0
         bj, bt = np.asarray(fj.bow), _n(ft.bow)
         assert bj @ bt / (np.linalg.norm(bj) * np.linalg.norm(bt)) >= 0.99
+
+
+def test_make_frame_matches_jax(small_frames):
+    cfg, tcfg, imgs = small_frames
+    _frames_match_jax(cfg, tcfg, imgs, min_markers=3)
+
+
+def test_make_frame_matches_jax_at_the_kitti_camera():
+    """The benchmark's KITTI 00-02 configuration at its full size
+    (slambench/configs/kitti00-1241x376.json: 1241x376, an odd width,
+    rectified, 2000 features) on two frames of a row of 16 markers 1.4 m
+    apart seen from 2.3 m, as its drive sees them; the rules of
+    test_make_frame_matches_jax. JAX compiles the frame once (~25 s on the
+    CPU), then ~1 s a frame."""
+    with open(os.path.join(REPO, "slambench", "configs",
+                           "kitti00-1241x376.json")) as f:
+        slam = json.load(f)["slam"]
+    base = jconfig.SlamConfig()
+    cfg = base.replace(
+        camera=dataclasses.replace(base.camera, **{
+            **slam["camera"], "dist": tuple(slam["camera"]["dist"])}),
+        orb=dataclasses.replace(base.orb, **slam["orb"]),
+        aruco=dataclasses.replace(base.aruco, **slam["aruco"]))
+    tcfg = tconfig.SlamConfig.from_dict(dataclasses.asdict(cfg))
+    assert tcfg.to_dict() == tconfig.SlamConfig.from_dict(slam).to_dict()
+    assert cfg.camera.width % 2 == 1 and not any(cfg.camera.dist)
+    ids = [int(i) for i in np.random.default_rng(21).choice(
+        np.arange(1, 1000), 16, replace=False)]
+    world = jsyn.build_world(ids, marker_size=0.187, grid_cols=16,
+                             spacing=1.4, px_per_m=500.0, extent_margin=1.0)
+    poses = [jsyn.look_at_plane_pose((x, 0.0), 2.3, yaw=yaw)
+             for x, yaw in ((5.6, 0.1), (12.7, -0.12))]
+    imgs = [np.clip(jsyn.render_view(world, cfg.camera, R, t), 0,
+                    255).astype(np.uint8) for R, t in poses]
+    assert imgs[0].shape == (376, 1241)
+    _frames_match_jax(cfg, tcfg, imgs, min_markers=2)
 
 
 def test_make_frame_unfused_quads_match_jax(small_frames):

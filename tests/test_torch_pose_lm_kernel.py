@@ -25,8 +25,10 @@ which alone the two sums differ.
 """
 
 import importlib.util
+import json
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -107,6 +109,77 @@ def pose_problem(seed, n=1000, a=16, markers="good", behind=0, valid=0.6,
     return out
 
 
+def kitti_problem(seed, device="cpu"):
+    """One pose-LM problem of the tracking cascade built from a frame of the
+    benchmark's KITTI 00-02 configuration (slambench/configs/
+    kitti00-1241x376.json: 1241x376, rectified, 2000 features): make_frame
+    on a seeded view of a row of 16 markers 1.4 m apart from 2.3 m (the
+    kitti.loc-frame drive), its 2000 keypoint slots matched to the wall
+    point each one sees (70 % of the valid ones, a tenth of those to another
+    slot's point), its 16 marker slots to their true world corners, and a
+    start pose ~1 deg / 2 cm off the truth. E = 2000 + 4 x 16 = 2064 edges:
+    K5's 512-thread block. Returns (optimize_pose's keyword arguments, the
+    true (Rcw, tcw))."""
+    from orb_slam2_aruco_tpu_torch.config import SlamConfig
+    from orb_slam2_aruco_tpu_torch.geometry.camera import camera_from_config
+    from orb_slam2_aruco_tpu_torch.io import synthetic
+    from orb_slam2_aruco_tpu_torch.pipeline import frontend
+
+    with open(os.path.join(ROOT, "slambench", "configs",
+                           "kitti00-1241x376.json")) as f:
+        cfg = SlamConfig.from_dict(json.load(f)["slam"])
+    rng = np.random.default_rng(seed)
+    ids = [int(i) for i in rng.choice(np.arange(1, 1000), 16, replace=False)]
+    world = synthetic.build_world(ids, marker_size=cfg.aruco.marker_size,
+                                  grid_cols=16, spacing=1.4, px_per_m=500.0,
+                                  extent_margin=1.0, seed=seed % 2 ** 32)
+    R, t = synthetic.look_at_plane_pose((rng.uniform(2.8, 18.2), 0.0), 2.3,
+                                        yaw=rng.uniform(-0.15, 0.15))
+    R, t = R.astype(np.float64), t.astype(np.float64)
+    img = np.clip(synthetic.render_view(world, cfg.camera, R, t), 0,
+                  255).astype(np.uint8)
+    cam = camera_from_config(cfg.camera, device)
+    fr = frontend.make_frame(torch.as_tensor(img, device=device), cam, cfg)
+    c = cfg.camera
+    # each keypoint's ray onto the wall z = 0 through the true pose
+    uv = fr.kp_uv.double().cpu().numpy()
+    d = np.stack([(uv[:, 0] - c.cx) / c.fx, (uv[:, 1] - c.cy) / c.fy,
+                  np.ones(len(uv))], -1) @ R
+    centre = -R.T @ t
+    pw = centre + (-centre[2] / d[:, 2])[:, None] * d
+    mask = fr.kp_valid.cpu().numpy() & (rng.random(len(uv)) < 0.7)
+    wrong = np.flatnonzero(mask & (rng.random(len(uv)) < 0.1))
+    pw[wrong] = pw[rng.permutation(wrong)]
+    # each detected corner to the nearest true corner of its id
+    corners = {s.marker_id: world.marker_corners_world(s).astype(np.float64)
+               for s in world.markers}
+    muv = fr.mk_corners.double().cpu().numpy()
+    mk_ids = fr.mk_ids.cpu().numpy()
+    mk_ok = (fr.mk_valid & fr.mk_good).cpu().numpy()
+    cw = np.zeros((len(mk_ids), 4, 3))
+    for a, mid in enumerate(mk_ids):
+        if not mk_ok[a] or int(mid) not in corners:
+            mk_ok[a] = False
+            continue
+        X = corners[int(mid)]
+        pc = X @ R.T + t
+        proj = np.stack([c.fx * pc[:, 0] / pc[:, 2] + c.cx,
+                         c.fy * pc[:, 1] / pc[:, 2] + c.cy], -1)
+        near = np.linalg.norm(muv[a][:, None] - proj[None], axis=-1)
+        cw[a] = X[near.argmin(1)]
+    octave = fr.kp_octave.cpu().numpy()
+    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32),  # noqa: E731
+                                    device=device)
+    p = dict(Rcw0=f32(_rodrigues(rng.normal(size=3) * 0.01) @ R),
+             tcw0=f32(t + rng.normal(size=3) * 0.02), cam=cam, pts_w=f32(pw),
+             uv=fr.kp_uv.contiguous(),
+             mask=torch.as_tensor(mask, device=device),
+             inv_sigma2=f32(1.0 / cfg.orb.scale_factor ** (2 * octave)),
+             marker_corners_w=f32(cw), marker_uv=fr.mk_corners.contiguous(),
+             marker_mask=torch.as_tensor(mk_ok, device=device))
+    return p, (R, t)
+
+
 def _pose_dist(a, b):
     """(rad, m) between the poses of two PoseOptResults."""
     Ra, Rb, ta, tb = (x.double().cpu() for x in (a.Rcw, b.Rcw, a.tcw, b.tcw))
@@ -148,8 +221,10 @@ def _edge_chi2(p, R, t):
     """r^2 * inv_sigma2 of every point edge at pose (R, t), float64."""
     X = p["pts_w"].double().cpu()
     pc = X @ R.double().cpu().T + t.double().cpu()
-    proj = torch.stack([FX * pc[:, 0] / pc[:, 2] + CX,
-                        FY * pc[:, 1] / pc[:, 2] + CY], -1)
+    fx, fy, cx, cy = (float(getattr(p["cam"], k))
+                      for k in ("fx", "fy", "cx", "cy"))
+    proj = torch.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                        fy * pc[:, 1] / pc[:, 2] + cy], -1)
     r = p["uv"].double().cpu() - proj
     return (r * r).sum(-1) * p["inv_sigma2"].double().cpu()
 
@@ -230,6 +305,32 @@ def test_kernel_matches_plain_above_2k_edges(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2147483921, 21, 22])
+def test_kernel_matches_plain_on_kitti_cascade_problems(cuda_device,
+                                                        monkeypatch, seed):
+    """The cascade's problems at the KITTI camera: 2000 slots + 16 markers,
+    so the 512-thread block, held to the plain LM by this file's limits."""
+    p, _ = kitti_problem(seed, cuda_device)
+    assert p["pts_w"].shape[0] + 4 * p["marker_mask"].shape[0] == 2064
+    before = dict(pose_opt.LM_BLOCK)
+    held_to_plain(p, monkeypatch)
+    assert pose_opt.LM_BLOCK == {"256": before["256"],
+                                 "512": before["512"] + 1}
+
+
+@pytest.mark.cuda
+def test_lm_block_counts_each_launch_by_its_block(cuda_device):
+    kitti, _ = kitti_problem(23, cuda_device)
+    tum = pose_problem(24, device=cuda_device)
+    before = dict(pose_opt.LM_BLOCK)
+    for _ in range(3):
+        pose_opt.optimize_pose(**kitti)
+    pose_opt.optimize_pose(**tum)
+    assert pose_opt.LM_BLOCK == {"256": before["256"] + 1,
+                                 "512": before["512"] + 3}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,a", [(1000, 16), (3000, 64)])
 def test_kernel_repeats_bit_for_bit(cuda_device, n, a):
     p = pose_problem(15, n=n, a=a, device=cuda_device)
@@ -278,6 +379,41 @@ def _bad(p, name, how):
         t = torch.stack([t, t], -1)[..., 0]
         assert not t.is_contiguous()
     return {**p, name: t}
+
+
+def test_kitti_problem_is_a_512_thread_problem_the_plain_lm_solves():
+    """kitti_problem on the CPU: 2064 edges, real markers, and the plain LM
+    brings the start pose back to the truth."""
+    p, (R, t) = kitti_problem(25)
+    n, a = p["pts_w"].shape[0], p["marker_mask"].shape[0]
+    assert (n, a) == (2000, 16)
+    assert pose_opt.lm_block(n + 4 * a) == "512"
+    assert int(p["marker_mask"].sum()) >= 2
+    assert int(p["mask"].sum()) >= 1000
+    got = pose_opt.optimize_pose(**p)
+    truth = types.SimpleNamespace(Rcw=torch.as_tensor(R),
+                                  tcw=torch.as_tensor(t))
+    rot, tr = _pose_dist(got, truth)
+    assert rot < 2e-3 and tr < 0.01, (rot, tr)
+
+
+def test_lm_block_rule_matches_its_source():
+    """LM_BLOCK's rule is pose_lm_launch's: 256 threads up to
+    LM_BLOCK_EDGES edges (N + 4 A), 512 above."""
+    with open(os.path.join(build.SRC_DIR, "pose_lm.cu")) as f:
+        src = f.read()
+    m = re.search(r"if \(N \+ 4 \* A <= (\d+)\)\s*pose_lm_kernel<(\d+)>"
+                  r"<<<1, (\d+), 0, s>>>\(a\);\s*else\s*"
+                  r"pose_lm_kernel<(\d+)><<<1, (\d+), 0, s>>>", src)
+    assert m, "pose_lm_launch's block rule not found in pose_lm.cu"
+    edges, lo, lo_threads, hi, hi_threads = (int(g) for g in m.groups())
+    assert edges == pose_opt.LM_BLOCK_EDGES
+    assert (lo, hi) == (lo_threads, hi_threads)
+    assert set(pose_opt.LM_BLOCK) == {str(lo), str(hi)}
+    assert pose_opt.lm_block(1000 + 4 * 16) == str(lo) == "256"
+    assert pose_opt.lm_block(2000 + 4 * 16) == str(hi) == "512"
+    assert pose_opt.lm_block(edges) == str(lo)
+    assert pose_opt.lm_block(edges + 1) == str(hi)
 
 
 @pytest.mark.parametrize("how", ["dtype", "shape", "contiguity"])
@@ -329,11 +465,9 @@ def test_every_kernel_is_counted():
     assert set(kernels.launch_counts) == set(build.SIGNATURES)
 
 
-def _load_reader():
-    path = os.path.join(ROOT, "slambench", "layers",
-                        "pose_lm_kernel_share.py")
-    spec = importlib.util.spec_from_file_location("pose_lm_kernel_share",
-                                                  path)
+def _load_reader(name="pose_lm_kernel_share"):
+    path = os.path.join(ROOT, "slambench", "layers", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -355,6 +489,35 @@ def test_reader_reads_the_kernel_share():
                           "lm_calls.plain": 3.0})) == 25.0
     assert r.read(_Trace({"lm_calls.kernel": 0.0,
                           "lm_calls.plain": 0.0})) is None
+
+
+class _Profiled:
+    def __init__(self, profile):
+        self.profile = profile
+
+
+def test_us_reader_reads_the_mean_launch():
+    """pose_lm_kernel_us on a synthetic profile: the mean of the K5
+    launches' device time in µs, whatever their block; other kernels and
+    copies are not read."""
+    r = _load_reader("pose_lm_kernel_us")
+    dev = [("void (anonymous namespace)::pose_lm_kernel<512>(PoseLmArgs)",
+            1_000, 151_000),
+           ("void (anonymous namespace)::pose_lm_kernel<512>(PoseLmArgs)",
+            200_000, 370_000),
+           ("fast_score_nms_kernel", 0, 900_000),
+           ("Memcpy HtoD (Pageable -> Device)", 10, 20)]
+    assert r.read(_Profiled({"device": dev, "window_ns": 10 ** 7})) == 160.0
+    dev[0] = ("void pose_lm_kernel<256>(PoseLmArgs)", 0, 80_000)
+    assert r.read(_Profiled({"device": dev, "window_ns": 10 ** 7})) == 125.0
+
+
+def test_us_reader_leaves_its_metric_out_without_a_launch():
+    r = _load_reader("pose_lm_kernel_us")
+    assert r.read(_Profiled(None)) is None
+    assert r.read(_Profiled({"device": [], "window_ns": 1})) is None
+    assert r.read(_Profiled({"device": [("cc_fused_kernel", 0, 5)],
+                             "window_ns": 10})) is None
 
 
 def test_reader_leaves_its_metric_out_without_the_counter(monkeypatch):

@@ -185,3 +185,49 @@ def test_staged_source_on_cpu():
 
     with pytest.raises(OSError, match="decode failed"):
         list(StagedSource(broken(), device="cpu"))
+
+
+@pytest.mark.parametrize("mode", list(TB_MODES))
+def test_track_batch_counts_no_marker_old_on_an_aged_map(small, mode,
+                                                         monkeypatch):
+    """Every track_batch mode localizes against a final map: on the map
+    aged so that every marker is old to SLAM-mode tracking
+    (old_marker_flags), no mode leaves a bound marker out of its seed, and
+    each chunk is the one it tracks on the map as loaded, bit for bit."""
+    from test_torch_tracking import _aged
+
+    path, ref, cfg, imgs = small
+    ins = _inputs(ref)
+    state = tckpt.load_map(path, device="cpu")._replace(
+        pt_visible=ins["pt_visible"], pt_found=ins["pt_found"])
+    aged = _aged(state)
+    mcfg = serving_cfg(cfg, *TB_MODES[mode])
+    cam = tcam.camera_from_config(cfg.camera)
+    stack = torch.as_tensor(np.stack(imgs[2:6]))
+    olds = []
+    candidate = ttrack.aruco_pose_candidate
+
+    def spy(state, frame, slots, *a, old=None, **k):
+        olds.append((slots, old, ttrack.old_marker_flags(
+            state, slots, mcfg.loop.min_kfs_between_loops)))
+        return candidate(state, frame, slots, *a, old=old, **k)
+
+    monkeypatch.setattr(ttrack, "aruco_pose_candidate", spy)
+
+    def run(st):
+        return ttrack.track_batch(
+            st, stack, ins["R_last"], ins["t_last"], ins["vel_R"],
+            ins["vel_t"], torch.tensor(True),
+            *[ins[k] for k in TB_INPUTS[4:11]], cam, mcfg)
+
+    ctrls, carry = run(aged)
+    assert len(olds) >= 4
+    for slots, old, flags in olds:
+        assert not bool(old.any())
+        # the aged map's bound markers are all old to SLAM-mode tracking
+        assert torch.equal(flags, slots >= 0) and bool(flags.any())
+    assert (ctrls[:, 0] >= 30).all()
+    ctrls0, carry0 = run(state)
+    assert torch.equal(ctrls, ctrls0)
+    for a, b in zip(carry, carry0):
+        assert torch.equal(a, b)

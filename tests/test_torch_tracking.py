@@ -4,6 +4,7 @@ on JAX Frames carried across with `frame_from_numpy`.
 """
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -256,3 +257,82 @@ def test_relocalization_and_track_full_match_jax(ctx):
     cj, ct = np.asarray(out_j.ctrl), _n(out_t.ctrl)
     np.testing.assert_array_equal(ct[2:5], cj[2:5])      # branch flags
     assert ct[19] == cj[19]                              # reference keyframe
+
+
+def _aged(tm, n=12):
+    """The map with n keyframes appended after its newest that observe no
+    marker and no point: every mapped marker is then at least n keyframes
+    old (mvbOldAruco at min_kfs_between_loops = 10)."""
+    free = torch.nonzero(~tm.kf_valid)[:n, 0]
+    fid, valid = tm.kf_frame_id.clone(), tm.kf_valid.clone()
+    fid[free] = int(fid[tm.kf_valid].max()) + 1 + torch.arange(
+        len(free), dtype=fid.dtype)
+    valid[free] = True
+    mk_valid = tm.kf_mk_valid.clone()
+    mk_valid[free] = False
+    return tm._replace(kf_frame_id=fid, kf_valid=valid, kf_mk_valid=mk_valid)
+
+
+def _track_full_args(ctx):
+    """track_full's arguments for frame 1 after frame 0 relocalized by its
+    marker (the steps of test_relocalization_and_track_full_match_jax, in
+    the port)."""
+    tcfg, tm, tc = ctx["tcfg"], ctx["tmap"], ctx["tc"]
+    tf0, tf1 = ctx["tframes"]
+    st = ttrack.bind_markers(tm, tf0)
+    _, R0, t0, _ = ttrack.aruco_pose_candidate(tm, tf0, st, tc, tcfg)
+    kf = ttrack.marker_observer_kf(tm, st)
+    r0 = ttrack.track_vs_keyframe(tm, tf0, st, kf, R0, t0, tc, tcfg)
+    loc, _ = ttrack.local_point_mask(tm, r0.obs_point, 80)
+    r1, _ = ttrack.track_local_map(tm, tf0, st, r0.Rcw, r0.tcw, r0.obs_point,
+                                   tc, tcfg, pt_candidates=loc)
+    return (tf1, r1.Rcw, r1.tcw, r1.Rcw, r1.tcw, tf0.kp_uv, tf0.desc,
+            r1.obs_point, tf0.kp_valid, tf0.kp_octave, tf0.kp_angle,
+            torch.tensor(0), tc, tcfg)
+
+
+def test_track_full_on_a_final_map_counts_no_marker_old(ctx):
+    """Localization against a final map (final_map) flags no marker old,
+    as track_batch's extrapolate mode does: on a map whose markers are all
+    old, SLAM-mode tracking leaves the frame's bound markers out of the
+    seed, the error check and the pose LM, and localization takes the
+    marker seed. On a map with no old marker (ref_small, and every map the
+    recorded localizations run on) the two are the same bit for bit."""
+    tm = ctx["tmap"]
+    args = _track_full_args(ctx)
+    slam = ttrack.track_full(tm, *args)
+    final = ttrack.track_full(tm, *args, final_map=True)
+    assert not bool(slam.old_flags.any())
+    for a, b in zip(slam, final):
+        assert torch.equal(a, b)
+    aged = _aged(tm)
+    bound = ttrack.bind_markers(aged, args[0]) >= 0
+    assert int(bound.sum()) >= 3
+    slam = ttrack.track_full(aged, *args)
+    final = ttrack.track_full(aged, *args, final_map=True)
+    assert torch.equal(slam.old_flags, bound)
+    assert not bool(final.old_flags.any())
+    assert float(slam.ctrl[2]) == 0.0 and float(final.ctrl[2]) == 1.0
+    assert int(final.n_inliers) >= 30
+
+
+def test_localization_mode_tracks_on_a_final_map(ctx, monkeypatch):
+    """SlamSystem's per-frame tracking passes final_map in localization
+    mode: a loaded map relocalizes frame 0, then tracks frame 1."""
+    from orb_slam2_aruco_tpu_torch.pipeline import system as tsystem
+
+    seen = []
+    track_full = ttrack.track_full
+    params = inspect.signature(track_full)
+
+    def spy(*a, **k):
+        seen.append(params.bind(*a, **k).arguments.get("final_map"))
+        return track_full(*a, **k)
+
+    monkeypatch.setattr(ttrack, "track_full", spy)
+    ts = tsystem.SlamSystem(ctx["tcfg"], device="cpu")
+    ts.load_map(REF_SMALL)
+    assert ts.localization_only
+    for i, frame in enumerate(ctx["tframes"]):
+        assert ts._step_frame(frame, i, i / 30.0) is not None
+    assert ts.stats["reloc"] == 1 and seen == [True]
