@@ -9,9 +9,8 @@ rounds, marker corners as fixed edges with information w = 25.
 `optimize_pose` runs the whole LM as one launch of the hand-written CUDA
 kernel K5 (kernels/csrc/pose_lm.cu) on CUDA tensors, and the plain PyTorch
 version `optimize_pose_torch` on CPU tensors; a build or launch failure
-raises. `LM_CALLS` counts the calls by route, `LM_BLOCK` the kernel's
-launches by block width. Every call is the span pose_lm
-(utils/telemetry.py).
+raises. `LM_CALLS` counts the calls by route. Every call is the span
+pose_lm (utils/telemetry.py).
 
 The JAX loop stops a round after two stalled iterations (a `while_loop`),
 as the kernel does. The plain version runs every round's full iteration
@@ -42,17 +41,6 @@ from orb_slam2_aruco_tpu_torch.utils.telemetry import annotate
 # (CUDA tensors) and the plain version (CPU tensors); readers take
 # differences
 LM_CALLS = {"kernel": 0, "plain": 0}
-
-# K5 runs one CTA of 256 threads up to LM_BLOCK_EDGES edges (keypoint slots
-# plus four per marker slot), and of 512 above (pose_lm_launch in
-# kernels/csrc/pose_lm.cu); LM_BLOCK counts its launches by that width
-LM_BLOCK_EDGES = 2048
-LM_BLOCK = {"256": 0, "512": 0}
-
-
-def lm_block(n_edges: int) -> str:
-    """The block width, as LM_BLOCK's key, of a K5 launch over n_edges."""
-    return "256" if n_edges <= LM_BLOCK_EDGES else "512"
 
 
 class PoseOptResult(NamedTuple):
@@ -150,7 +138,6 @@ def optimize_pose_cuda(Rcw0, tcw0, cam: Camera, pts_w, uv, mask, inv_sigma2,
         inliers.data_ptr(), n_inliers.data_ptr(), chi2.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch("pose_lm", err)
-    LM_BLOCK[lm_block(n + 4 * n_mk)] += 1
     return PoseOptResult(Rcw=R, tcw=t, inliers=inliers, n_inliers=n_inliers,
                          chi2=chi2)
 

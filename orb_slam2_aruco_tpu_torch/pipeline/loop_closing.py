@@ -47,7 +47,7 @@ from orb_slam2_aruco_tpu_torch.ops import matching
 from orb_slam2_aruco_tpu_torch.optim import pose_graph, sim3_opt
 from orb_slam2_aruco_tpu_torch.pipeline.frontend import scale_sigma2
 from orb_slam2_aruco_tpu_torch.pipeline.tracking import (
-    _scatter_max,
+    _matched,
     host_read,
     row,
 )
@@ -207,8 +207,7 @@ def compute_sim3(state: MapState, kf_cur: int, kf_loop: int,
     # per current feature, the first round's match wins
     Ncur = cur_obs.shape[0]
     ar = torch.arange(loop_obs.shape[0], device=dev)
-    j2_of_cur = _scatter_max(Ncur, torch.where(m2.valid, m2.idx, Ncur),
-                             torch.where(m2.valid, ar, -1))
+    j2_of_cur = _matched(Ncur, m2, ar)
     j_merged = torch.where(m.valid, m.idx, j2_of_cur)
     jm = torch.clamp(j_merged, min=0)
     loop_jm = torch.clamp(loop_obs[jm], min=0)

@@ -12,7 +12,7 @@ localization slice runs (reference Tracking::Track, src/Tracking.cc:192-492):
   * Relocalization (Tracking.cc:1741-1914)      -> reloc_candidates,
                                                    reloc_pnp
   * the whole OK-state cascade                  -> track_full
-  * make_frame + the cascade (pipelined mode)   -> track_full_img
+  * make_frame + the cascade                    -> track_full_img
   * a chunk of localization frames              -> track_batch
 
 Every function runs eagerly on the state's device with fixed shapes. The
@@ -22,6 +22,8 @@ scalar (`host_sync`), counted in `SYNCS` so a run can report its host syncs
 per frame and the host time they waited. `track_batch`'s extrapolate mode
 has none. `track_full`'s stages are the spans tracking.motion,
 tracking.retry, tracking.refkf and tracking.local_map (utils/telemetry.py).
+Every path here and in pipeline/system.py shares one motion model
+(`_motion_seed`, `_motion_advance`) and one control vector (`_Ctrl`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orb_slam2_aruco_tpu_torch.config import SlamConfig
@@ -128,9 +131,7 @@ class FullTrackResult(NamedTuple):
     any_new_marker: torch.Tensor  # bool
     pt_visible: torch.Tensor
     pt_found: torch.Tensor
-    ctrl: torch.Tensor            # [20] float32, layout of the JAX package:
-                                  # [n_inl, n_first, aruco, refkf, new_mk,
-                                  #  Rcw(9), tcw(3), n_ref3, n_ref2, ref_kf]
+    ctrl: torch.Tensor            # [20] float32 in _Ctrl's layout
 
 
 def _scatter_max(N: int, tgt, src):
@@ -138,6 +139,13 @@ def _scatter_max(N: int, tgt, src):
     collects the invalid entries), returned cropped to [N]."""
     buf = torch.full((N + 1,), -1, dtype=torch.int64, device=src.device)
     return buf.scatter_reduce(0, tgt, src, "amax", include_self=True)[:N]
+
+
+def _matched(N: int, m, src):
+    """[N] per b-side feature of the matches m: src of the a-side entry
+    matched to it, -1 where none (the match -> obs_point scatter)."""
+    return _scatter_max(N, torch.where(m.valid, m.idx, N),
+                        torch.where(m.valid, src, -1))
 
 
 def row(a, k):
@@ -310,9 +318,7 @@ def track_frame(state: MapState, frame: Frame, slots, Rcw0, tcw0,
         check_rotation=cfg.matcher.check_orientation,
         histo_length=cfg.matcher.histo_length,
     )
-    N = frame.kp_uv.shape[0]
-    obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
-                             torch.where(m.valid, last_obs, -1))
+    obs_point = _matched(frame.kp_uv.shape[0], m, last_obs)
     res, obs_out = _optimize(
         state, frame, slots, Rcw0, tcw0, obs_point, cam, cfg, old,
         rounds=cfg.tracking.seed_rounds if seed_budget else None,
@@ -321,24 +327,31 @@ def track_frame(state: MapState, frame: Frame, slots, Rcw0, tcw0,
                        m.valid.sum())
 
 
-def track_vs_keyframe(state: MapState, frame: Frame, slots, kf, Rcw0, tcw0,
-                      cam: Camera, cfg: SlamConfig, old=None) -> TrackResult:
-    """Descriptor-only matching against one keyframe's map-point features
-    (TrackReferenceKeyFrame), then optimize."""
+def _match_keyframe(state: MapState, frame: Frame, kf, cfg: SlamConfig,
+                    nn_ratio: float, check_rotation: bool = False):
+    """(matches, obs_point [N]): mutual descriptor matches of the frame
+    against keyframe kf's map points, rotation-checked if asked."""
     kf_obs = row(state.kf_obs_point, kf)
     kf_valid = (row(state.kf_kp_valid, kf) & (kf_obs >= 0)
                 & state.pt_valid[torch.clamp(kf_obs, min=0)])
     d = matching.distance_matrix(row(state.kf_desc, kf), frame.desc,
                                  kf_valid, frame.kp_valid)
     m = matching.nn_match(d, max_dist=float(cfg.matcher.th_low),
-                          nn_ratio=cfg.matcher.nn_ratio_init, mutual=True)
-    if cfg.matcher.check_orientation:
+                          nn_ratio=nn_ratio, mutual=True)
+    if check_rotation:
         m = matching.rotation_consistency(row(state.kf_kp_angle, kf),
                                           frame.kp_angle, m,
                                           cfg.matcher.histo_length)
-    N = frame.kp_uv.shape[0]
-    obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
-                             torch.where(m.valid, kf_obs, -1))
+    return m, _matched(frame.kp_uv.shape[0], m, kf_obs)
+
+
+def track_vs_keyframe(state: MapState, frame: Frame, slots, kf, Rcw0, tcw0,
+                      cam: Camera, cfg: SlamConfig, old=None) -> TrackResult:
+    """Descriptor-only matching against one keyframe's map-point features
+    (TrackReferenceKeyFrame), then optimize."""
+    m, obs_point = _match_keyframe(state, frame, kf, cfg,
+                                   cfg.matcher.nn_ratio_init,
+                                   cfg.matcher.check_orientation)
     res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
                              cfg, old)
     return TrackResult(res.Rcw, res.tcw, obs_out, res.n_inliers,
@@ -363,16 +376,7 @@ def reloc_pnp(state: MapState, frame: Frame, slots, kf, cam: Camera,
     Tracking.cc:1741-1914): mutual descriptor matches give 2D-3D pairs,
     RANSAC PnP a pose, the pose LM refines it. n_inliers is 0 when PnP
     found too few inliers; n_matches holds PnP's inlier count."""
-    kf_obs = row(state.kf_obs_point, kf)
-    kf_valid = (row(state.kf_kp_valid, kf) & (kf_obs >= 0)
-                & state.pt_valid[torch.clamp(kf_obs, min=0)])
-    d = matching.distance_matrix(row(state.kf_desc, kf), frame.desc,
-                                 kf_valid, frame.kp_valid)
-    m = matching.nn_match(d, max_dist=float(cfg.matcher.th_low),
-                          nn_ratio=0.75, mutual=True)
-    N = frame.kp_uv.shape[0]
-    obs_point = _scatter_max(N, torch.where(m.valid, m.idx, N),
-                             torch.where(m.valid, kf_obs, -1))
+    _, obs_point = _match_keyframe(state, frame, kf, cfg, 0.75)
     pts, pvalid = _point_world_arrays(state, obs_point)
     res = pnp.ransac_pnp(pts, frame.kp_uv, pvalid & frame.kp_valid, cam,
                          chi2_th=cfg.optim.chi2_mono,
@@ -430,9 +434,7 @@ def track_local_map(state: MapState, frame: Frame, slots, Rcw0, tcw0,
         max_dist=float(cfg.matcher.th_high),
         nn_ratio=cfg.matcher.nn_ratio_tracking,
     )
-    N = frame.kp_uv.shape[0]
-    new_obs = _scatter_max(N, torch.where(m.valid, m.idx, N),
-                           torch.where(m.valid, cidx, -1))
+    new_obs = _matched(frame.kp_uv.shape[0], m, cidx)
     obs_point = torch.where(obs_point >= 0, obs_point, new_obs)
     n_matches = (obs_point >= 0).sum()
     res, obs_out = _optimize(state, frame, slots, Rcw0, tcw0, obs_point, cam,
@@ -471,8 +473,7 @@ def _cascade_seed(state: MapState, frame: Frame, R_pred, t_pred, R_last,
         old = marker_old(state, slots, cfg, final_map)
         ok_a, R_a, t_a, _ = aruco_pose_candidate(state, frame, slots, cam,
                                                  cfg, old=old)
-        R0 = torch.where(ok_a, R_a, R_pred)
-        t0 = torch.where(ok_a, t_a, t_pred)
+        R0, t0 = torch.where(ok_a, R_a, R_pred), torch.where(ok_a, t_a, t_pred)
         tr = track_frame(state, frame, slots, R0, t0, *last, cam, cfg,
                          search_radius=cfg.matcher.search_radius_motion,
                          old=old, seed_budget=seed_budget)
@@ -493,6 +494,41 @@ def _cascade_seed(state: MapState, frame: Frame, R_pred, t_pred, R_last,
     return tr, slots, old, ok_a, need_ref
 
 
+class _Ctrl(NamedTuple):
+    """FullTrackResult.ctrl's [20] float32 layout (the JAX package's), field
+    by field: `_finish` writes it, `_read_ctrl` decodes a host copy."""
+    n_inliers: int          # final (local-map) inliers
+    n_first: int            # inliers after the first-stage track
+    used_aruco: bool
+    used_ref_kf: bool
+    any_new_marker: bool
+    Rcw: np.ndarray         # [3, 3]
+    tcw: np.ndarray         # [3]
+    n_ref3: int             # reference-keyframe points seen >= 3 times
+    n_ref2: int             # ... and >= 2 times
+    ref_kf: int
+
+
+# each field's index in the vector (a slice for the pose's two fields)
+_CTRL_AT = dict(zip(_Ctrl._fields, (0, 1, 2, 3, 4, slice(5, 14),
+                                    slice(14, 17), 17, 18, 19)))
+
+
+def _read_ctrl(v) -> _Ctrl:
+    """A control vector's host copy v (numpy [20]), decoded."""
+    c = _Ctrl(*(v[at] for at in _CTRL_AT.values()))
+    return _Ctrl(int(c.n_inliers), int(c.n_first), bool(c.used_aruco > 0.5),
+                 bool(c.used_ref_kf > 0.5), bool(c.any_new_marker > 0.5),
+                 c.Rcw.reshape(3, 3).copy(), c.tcw.copy(), int(c.n_ref3),
+                 int(c.n_ref2), int(c.ref_kf))
+
+
+def _ctrl_scaled_t(ctrl, s):
+    """A control vector on the device with its tcw scaled by s."""
+    t = _CTRL_AT["tcw"]
+    return torch.cat([ctrl[:t.start], ctrl[t] * s, ctrl[t.stop:]])
+
+
 def _finish(state: MapState, frame: Frame, tr, n_first, slots, old, ok_a,
             need_ref, ref_kf, best_kf, vis, found) -> FullTrackResult:
     """FullTrackResult and its ctrl from a final local-map track `tr`: the
@@ -508,11 +544,9 @@ def _finish(state: MapState, frame: Frame, tr, n_first, slots, old, ok_a,
     ref_cnt = obs_count[ref_obs_safe]
     n_ref3 = (ref_pt_ok & (ref_cnt >= 3)).sum()
     n_ref2 = (ref_pt_ok & (ref_cnt >= 2)).sum()
-    f = lambda x: x.to(torch.float32).reshape(-1)  # noqa: E731
-    ctrl = torch.cat([
-        f(tr.n_inliers), f(n_first), f(ok_a), f(need_ref), f(any_new),
-        f(tr.Rcw), f(tr.tcw), f(n_ref3), f(n_ref2), f(ref_kf),
-    ])
+    ctrl = torch.cat([x.to(torch.float32).reshape(-1) for x in _Ctrl(
+        tr.n_inliers, n_first, ok_a, need_ref, any_new, tr.Rcw, tr.tcw,
+        n_ref3, n_ref2, ref_kf)])
     return FullTrackResult(
         Rcw=tr.Rcw, tcw=tr.tcw, obs_point=tr.obs_point,
         n_inliers=tr.n_inliers, n_first_stage=n_first,
@@ -521,30 +555,59 @@ def _finish(state: MapState, frame: Frame, tr, n_first, slots, old, ok_a,
     )
 
 
+def _local_map_track(state: MapState, frame: Frame, slots, tr, cam: Camera,
+                     cfg: SlamConfig, old=None):
+    """TrackLocalMap on a first-stage track tr (local_point_mask, then
+    track_local_map): (TrackResult, (pt_visible, pt_found), best_kf)."""
+    pt_local, best_kf = local_point_mask(state, tr.obs_point,
+                                         cfg.tracking.max_local_keyframes)
+    tr2, vis_found = track_local_map(state, frame, slots, tr.Rcw, tr.tcw,
+                                     tr.obs_point, cam, cfg, old=old,
+                                     pt_candidates=pt_local)
+    return tr2, vis_found, best_kf
+
+
 def _cascade_refine(state: MapState, frame: Frame, tr, slots, old, ok_a,
                     need_ref, ref_kf, cam: Camera,
                     cfg: SlamConfig) -> FullTrackResult:
     """Local-map search + pose refine (TrackLocalMap) and the
     NeedNewKeyFrame inputs."""
     with annotate("tracking.local_map"):
-        pt_local, best_kf = local_point_mask(
-            state, tr.obs_point, cfg.tracking.max_local_keyframes)
-        tr2, (vis, found) = track_local_map(
-            state, frame, slots, tr.Rcw, tr.tcw, tr.obs_point, cam, cfg,
-            old=old, pt_candidates=pt_local)
+        tr2, (vis, found), best_kf = _local_map_track(state, frame, slots, tr,
+                                                      cam, cfg, old)
         return _finish(state, frame, tr2, tr.n_inliers, slots, old, ok_a,
                        need_ref, ref_kf, best_kf, vis, found)
 
 
-def _result_from_track(state: MapState, frame: Frame, tr, slots, old, ok_a,
-                       need_ref, ref_kf, cfg: SlamConfig, pt_visible,
-                       pt_found) -> FullTrackResult:
-    """FullTrackResult of an already final local-map track, without a
-    second search (extrapolate mode with loc_extrap_passes=1)."""
-    _, best_kf = local_point_mask(state, tr.obs_point,
-                                  cfg.tracking.max_local_keyframes)
-    return _finish(state, frame, tr, tr.n_inliers, slots, old, ok_a,
-                   need_ref, ref_kf, best_kf, pt_visible, pt_found)
+def _motion_seed(R, t, vel, has_vel=None):
+    """The motion model's seed (TrackWithMotionModel, Tracking.cc:995-1000):
+    the velocity vel = (vR, vt) composed onto the last pose (R, t), or the
+    last pose without one (vel None, or has_vel a False device bool)."""
+    if vel is None:
+        return R, t
+    Rp, tp = se3_compose(*vel, R, t)
+    if has_vel is None:
+        return Rp, tp
+    return torch.where(has_vel, Rp, R), torch.where(has_vel, tp, t)
+
+
+def _motion_advance(tr, R_prev, t_prev, cfg: SlamConfig = None):
+    """The motion model's advance (mVelocity, Tracking.cc:395-404): the
+    velocity (vR, vt) from the previous pose to tr's, and has_vel: with
+    `cfg` a device bool, tr kept min_matches_local_map inliers (a failed
+    frame seeds the next from the last pose); without, True (the facade
+    gates on the host)."""
+    vel = se3_compose(tr.Rcw, tr.tcw, *se3_inverse(R_prev, t_prev))
+    if cfg is None:
+        return vel, True
+    return vel, tr.n_inliers >= cfg.tracking.min_matches_local_map
+
+
+def _frame_context(frame: Frame, obs_point):
+    """The last frame's part of the tracking context, in track_full's
+    order: (kp_uv, desc, obs_point, kp_valid, kp_octave, kp_angle)."""
+    return (frame.kp_uv, frame.desc, obs_point, frame.kp_valid,
+            frame.kp_octave, frame.kp_angle)
 
 
 def track_full(state: MapState, frame: Frame, R_pred, t_pred, R_last, t_last,
@@ -588,16 +651,12 @@ def _chunk_result(state: MapState, frames, outs, R_last, t_last,
         [o.pt_visible - state.pt_visible for o in outs]).sum(dim=0)
     found = state.pt_found + torch.stack(
         [o.pt_found - state.pt_found for o in outs]).sum(dim=0)
-    last, lastf = outs[-1], frames[-1]
-    if len(outs) >= 2:
-        R_prev, t_prev = outs[-2].Rcw, outs[-2].tcw
-    else:
-        R_prev, t_prev = R_last, t_last
-    vR, vt = se3_compose(last.Rcw, last.tcw, *se3_inverse(R_prev, t_prev))
-    ok_last = last.n_inliers >= cfg.tracking.min_matches_local_map
-    carry = (last.Rcw, last.tcw, vR, vt, ok_last, lastf.kp_uv, lastf.desc,
-             last.obs_point, lastf.kp_valid, lastf.kp_octave, lastf.kp_angle,
-             vis, found)
+    last = outs[-1]
+    R_prev, t_prev = ((outs[-2].Rcw, outs[-2].tcw) if len(outs) >= 2
+                      else (R_last, t_last))
+    vel, ok_last = _motion_advance(last, R_prev, t_prev, cfg)
+    carry = (last.Rcw, last.tcw, *vel, ok_last,
+             *_frame_context(frames[-1], last.obs_point), vis, found)
     return torch.stack([o.ctrl for o in outs]), carry
 
 
@@ -629,69 +688,55 @@ def track_batch(state: MapState, imgs, R_last, t_last, vel_R, vel_t, has_vel,
     """
     frames = [make_frame(im, cam, cfg) for im in imgs]
     tcfg = cfg.tracking
-    last = (last_uv, last_desc, last_obs, last_valid, last_octave, last_angle)
+    vel = (vel_R, vel_t)
     if tcfg.loc_two_stage and tcfg.loc_seed_mode == "extrapolate":
         outs = []
         Rp, tp = R_last, t_last
         for frame in frames:
-            Rp, tp = se3_compose(vel_R, vel_t, Rp, tp)
-            R_seed = torch.where(has_vel, Rp, R_last)
-            t_seed = torch.where(has_vel, tp, t_last)
+            Rp, tp = _motion_seed(Rp, tp, vel, has_vel)
             slots = bind_markers(state, frame)
             old = marker_old(state, slots, cfg, final_map=True)
             ok_a, R_a, t_a, _ = aruco_pose_candidate(
                 state, frame, slots, cam, cfg, old=old,
                 err_th=tcfg.loc_seed_marker_err)
-            R0 = torch.where(ok_a, R_a, R_seed)
-            t0 = torch.where(ok_a, t_a, t_seed)
+            R0, t0 = torch.where(ok_a, R_a, Rp), torch.where(ok_a, t_a, tp)
             no_obs = torch.full_like(frame.kp_octave, -1)
             tr, (vis, found) = track_local_map(
                 state, frame, slots, R0, t0, no_obs, cam, cfg, old=old,
                 radius_scale=tcfg.loc_extrap_radius_scale)
             need_ref = tr.n_inliers < tcfg.min_inliers_track
             if tcfg.loc_extrap_passes <= 1:
-                outs.append(_result_from_track(state, frame, tr, slots, old,
-                                               ok_a, need_ref, ref_kf, cfg,
-                                               vis, found))
+                # already the final local-map track: no second search
+                _, best_kf = local_point_mask(state, tr.obs_point,
+                                              tcfg.max_local_keyframes)
+                outs.append(_finish(state, frame, tr, tr.n_inliers, slots,
+                                    old, ok_a, need_ref, ref_kf, best_kf,
+                                    vis, found))
             else:
                 outs.append(_cascade_refine(state, frame, tr, slots, old,
                                             ok_a, need_ref, ref_kf, cam, cfg))
         return _chunk_result(state, frames, outs, R_last, t_last, cfg)
 
-    Rl, tl, vR, vt, hv = R_last, t_last, vel_R, vel_t, has_vel
-    if tcfg.loc_two_stage:
-        seeds = []
-        for frame in frames:
-            Rp, tp = se3_compose(vR, vt, Rl, tl)
-            tr, slots, old, ok_a, need_ref = _cascade_seed(
-                state, frame, torch.where(hv, Rp, Rl), torch.where(hv, tp, tl),
-                Rl, tl, *last, ref_kf, cam, cfg, seed_budget=True,
-                final_map=True)
-            vR, vt = se3_compose(tr.Rcw, tr.tcw, *se3_inverse(Rl, tl))
-            # a mid-chunk failure falls back to the last pose, not to a
-            # garbage constant-velocity seed
-            hv = tr.n_inliers >= tcfg.min_matches_local_map
-            Rl, tl = tr.Rcw, tr.tcw
-            last = (frame.kp_uv, frame.desc, tr.obs_point, frame.kp_valid,
-                    frame.kp_octave, frame.kp_angle)
-            seeds.append((tr, slots, old, ok_a, need_ref))
-        outs = [_cascade_refine(state, frame, *seed, ref_kf, cam, cfg)
-                for frame, seed in zip(frames, seeds)]
-        return _chunk_result(state, frames, outs, R_last, t_last, cfg)
-
-    st = state
-    ctrls = []
+    # two-stage and sequential: the motion-model cascade frame after frame
+    st, Rl, tl, hv = state, R_last, t_last, has_vel
+    last = (last_uv, last_desc, last_obs, last_valid, last_octave, last_angle)
+    steps = []
     for frame in frames:
-        Rp, tp = se3_compose(vR, vt, Rl, tl)
-        out = track_full(st, frame, torch.where(hv, Rp, Rl),
-                         torch.where(hv, tp, tl), Rl, tl, *last, ref_kf, cam,
-                         cfg, final_map=True)
-        vR, vt = se3_compose(out.Rcw, out.tcw, *se3_inverse(Rl, tl))
-        hv = out.n_inliers >= tcfg.min_matches_local_map
-        Rl, tl = out.Rcw, out.tcw
-        last = (frame.kp_uv, frame.desc, out.obs_point, frame.kp_valid,
-                frame.kp_octave, frame.kp_angle)
-        st = st._replace(pt_visible=out.pt_visible, pt_found=out.pt_found)
-        ctrls.append(out.ctrl)
-    carry = (Rl, tl, vR, vt, hv, *last, st.pt_visible, st.pt_found)
-    return torch.stack(ctrls), carry
+        R0, t0 = _motion_seed(Rl, tl, vel, hv)
+        if tcfg.loc_two_stage:
+            step = _cascade_seed(state, frame, R0, t0, Rl, tl, *last, ref_kf,
+                                 cam, cfg, seed_budget=True, final_map=True)
+            tr = step[0]
+        else:
+            tr = step = track_full(st, frame, R0, t0, Rl, tl, *last, ref_kf,
+                                   cam, cfg, final_map=True)
+            st = st._replace(pt_visible=tr.pt_visible, pt_found=tr.pt_found)
+        vel, hv = _motion_advance(tr, Rl, tl, cfg)
+        Rl, tl, last = tr.Rcw, tr.tcw, _frame_context(frame, tr.obs_point)
+        steps.append(step)
+    if tcfg.loc_two_stage:
+        outs = [_cascade_refine(state, frame, *seed, ref_kf, cam, cfg)
+                for frame, seed in zip(frames, steps)]
+        return _chunk_result(state, frames, outs, R_last, t_last, cfg)
+    carry = (Rl, tl, *vel, hv, *last, st.pt_visible, st.pt_found)
+    return torch.stack([o.ctrl for o in steps]), carry

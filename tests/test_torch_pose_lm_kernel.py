@@ -24,6 +24,7 @@ which alone the two sums differ.
 `pose_problem` (seeded, numpy) is also chip_smoke.py's K5 problem.
 """
 
+import collections
 import importlib.util
 import json
 import os
@@ -312,22 +313,30 @@ def test_kernel_matches_plain_on_kitti_cascade_problems(cuda_device,
     so the 512-thread block, held to the plain LM by this file's limits."""
     p, _ = kitti_problem(seed, cuda_device)
     assert p["pts_w"].shape[0] + 4 * p["marker_mask"].shape[0] == 2064
-    before = dict(pose_opt.LM_BLOCK)
     held_to_plain(p, monkeypatch)
-    assert pose_opt.LM_BLOCK == {"256": before["256"],
-                                 "512": before["512"] + 1}
 
 
 @pytest.mark.cuda
 def test_lm_block_counts_each_launch_by_its_block(cuda_device):
+    """pose_lm_launch's block, read from the profiled kernel names: 512
+    threads for KITTI's 2000 + 4 x 16 edges, 256 for 1000 + 4 x 16."""
+    from torch.profiler import ProfilerActivity, profile
+
     kitti, _ = kitti_problem(23, cuda_device)
     tum = pose_problem(24, device=cuda_device)
-    before = dict(pose_opt.LM_BLOCK)
-    for _ in range(3):
-        pose_opt.optimize_pose(**kitti)
     pose_opt.optimize_pose(**tum)
-    assert pose_opt.LM_BLOCK == {"256": before["256"] + 1,
-                                 "512": before["512"] + 3}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pose_opt.optimize_pose(**kitti)
+        pose_opt.optimize_pose(**tum)
+        torch.cuda.synchronize()
+    blocks = collections.Counter(
+        re.search(r"pose_lm_kernel<(\d+)>", e.name).group(1)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "pose_lm_kernel" in e.name)
+    assert blocks == {"512": 3, "256": 1}, blocks
 
 
 @pytest.mark.cuda
@@ -387,7 +396,6 @@ def test_kitti_problem_is_a_512_thread_problem_the_plain_lm_solves():
     p, (R, t) = kitti_problem(25)
     n, a = p["pts_w"].shape[0], p["marker_mask"].shape[0]
     assert (n, a) == (2000, 16)
-    assert pose_opt.lm_block(n + 4 * a) == "512"
     assert int(p["marker_mask"].sum()) >= 2
     assert int(p["mask"].sum()) >= 1000
     got = pose_opt.optimize_pose(**p)
@@ -395,25 +403,6 @@ def test_kitti_problem_is_a_512_thread_problem_the_plain_lm_solves():
                                   tcw=torch.as_tensor(t))
     rot, tr = _pose_dist(got, truth)
     assert rot < 2e-3 and tr < 0.01, (rot, tr)
-
-
-def test_lm_block_rule_matches_its_source():
-    """LM_BLOCK's rule is pose_lm_launch's: 256 threads up to
-    LM_BLOCK_EDGES edges (N + 4 A), 512 above."""
-    with open(os.path.join(build.SRC_DIR, "pose_lm.cu")) as f:
-        src = f.read()
-    m = re.search(r"if \(N \+ 4 \* A <= (\d+)\)\s*pose_lm_kernel<(\d+)>"
-                  r"<<<1, (\d+), 0, s>>>\(a\);\s*else\s*"
-                  r"pose_lm_kernel<(\d+)><<<1, (\d+), 0, s>>>", src)
-    assert m, "pose_lm_launch's block rule not found in pose_lm.cu"
-    edges, lo, lo_threads, hi, hi_threads = (int(g) for g in m.groups())
-    assert edges == pose_opt.LM_BLOCK_EDGES
-    assert (lo, hi) == (lo_threads, hi_threads)
-    assert set(pose_opt.LM_BLOCK) == {str(lo), str(hi)}
-    assert pose_opt.lm_block(1000 + 4 * 16) == str(lo) == "256"
-    assert pose_opt.lm_block(2000 + 4 * 16) == str(hi) == "512"
-    assert pose_opt.lm_block(edges) == str(lo)
-    assert pose_opt.lm_block(edges + 1) == str(hi)
 
 
 @pytest.mark.parametrize("how", ["dtype", "shape", "contiguity"])

@@ -168,6 +168,43 @@ def test_track_monocular_batch_is_one_track_batch_and_rewinds(small):
     assert [r.frame_id for r in system.get_trajectory()] == list(range(10))
 
 
+@pytest.mark.parametrize("tracked", [0, 1])
+def test_facade_and_sequential_track_batch_agree_bit_for_bit(small, tracked,
+                                                             monkeypatch):
+    """The per-frame facade and track_batch's sequential mode share one
+    motion model and one tracking context: from the same state (frame 0
+    relocalized, then `tracked` frames per frame: without a velocity, and
+    with one), over the same four frames, their control vectors are
+    bit-equal and the chunk's carry is the context the facade commits."""
+    path, ref, cfg, imgs = small
+    system = SlamSystem(serving_cfg(cfg, *TB_MODES["sequential"]),
+                        device="cpu")
+    system.load_map(path)
+    for i in range(1 + tracked):
+        assert system.track_monocular(imgs[i], ts=i / 30.0) is not None
+    assert (system.vel is not None) == bool(tracked)
+    chunk = imgs[1 + tracked:5 + tracked]
+    ctrls, carry = system._run_chunk(torch.as_tensor(np.stack(chunk)))
+    seen = []
+    track_full = ttrack.track_full
+
+    def spy(*a, **k):
+        out = track_full(*a, **k)
+        seen.append(out.ctrl)
+        return out
+
+    monkeypatch.setattr(ttrack, "track_full", spy)
+    for j, im in enumerate(chunk):
+        assert system.track_monocular(im, ts=(2 + j) / 30.0) is not None
+    assert torch.equal(torch.stack(seen), ctrls)
+    want = (*system.last_pose, *system.vel, torch.tensor(True),
+            *ttrack._frame_context(system.last_frame, system.last_obs),
+            system.map.pt_visible, system.map.pt_found)
+    assert len(carry) == len(want) == len(TB_CARRY)
+    for name, got, w in zip(TB_CARRY, carry, want):
+        assert torch.equal(got, w), name
+
+
 def test_staged_source_on_cpu():
     frames = [(np.full((6, 8), k, np.uint8), k / 10) for k in range(7)]
     per_frame = list(StagedSource(frames, device="cpu"))

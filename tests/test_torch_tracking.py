@@ -336,3 +336,34 @@ def test_localization_mode_tracks_on_a_final_map(ctx, monkeypatch):
     for i, frame in enumerate(ctx["tframes"]):
         assert ts._step_frame(frame, i, i / 30.0) is not None
     assert ts.stats["reloc"] == 1 and seen == [True]
+
+
+def test_ctrl_decoder_reads_finish_field_for_field(ctx):
+    """`_read_ctrl` decodes the control vector `_finish` writes, the layout
+    the per-frame, pipelined and chunked paths read: on frame 1's cascade
+    each field is the result's own value, the reference keyframe's
+    tracked-point counts are recounted from the map, and the device-side
+    readers (`_CTRL_AT`, `_ctrl_scaled_t`) touch only their fields."""
+    tm = ctx["tmap"]
+    out = ttrack.track_full(tm, *_track_full_args(ctx))
+    c = ttrack._read_ctrl(out.ctrl.numpy())
+    assert c.n_inliers == int(out.n_inliers) >= 30
+    assert c.n_first == int(out.n_first_stage)
+    assert (c.used_aruco, c.used_ref_kf, c.any_new_marker) == (
+        bool(out.used_aruco), bool(out.used_ref_kf), bool(out.any_new_marker))
+    np.testing.assert_array_equal(c.Rcw, out.Rcw.numpy())
+    np.testing.assert_array_equal(c.tcw, out.tcw.numpy())
+    k = c.ref_kf
+    assert bool(tm.kf_valid[k])
+    assert int(out.ctrl[ttrack._CTRL_AT["ref_kf"]]) == k
+    obs = _n(tm.kf_obs_point[k])
+    seen = obs[obs >= 0]
+    seen = seen[_n(tm.pt_valid)[seen]]
+    n_obs = (_n(tm.pt_obs_kf) & _n(tm.kf_valid)[None]).sum(axis=1)[seen]
+    assert c.n_ref3 == int((n_obs >= 3).sum()) > 0
+    assert c.n_ref2 == int((n_obs >= 2).sum()) >= c.n_ref3
+    s = ttrack._read_ctrl(
+        ttrack._ctrl_scaled_t(out.ctrl, torch.tensor(2.0)).numpy())
+    np.testing.assert_array_equal(s.tcw, c.tcw * np.float32(2.0))
+    for a, b in zip(s._replace(tcw=c.tcw), c):
+        np.testing.assert_array_equal(a, b)

@@ -46,17 +46,15 @@ def stages(state, imgs, cam, cfg, ref_kf):
     from orb_slam2_aruco_tpu_torch.pipeline.frontend import make_frame
 
     frames = [make_frame(im, cam, cfg) for im in imgs]
-    lastf = frames[0]
-    last_obs = torch.full_like(lastf.kp_octave, -1)
+    last = tracking._frame_context(
+        frames[0], torch.full_like(frames[0].kp_octave, -1))
     R0, t0 = state.kf_Rcw[0], state.kf_tcw[0]
 
     def stage1():
         out, (Rl, tl) = [], (R0, t0)
         for frame in frames:
-            seed = tracking._cascade_seed(
-                state, frame, Rl, tl, Rl, tl, lastf.kp_uv, lastf.desc,
-                last_obs, lastf.kp_valid, lastf.kp_octave, lastf.kp_angle,
-                ref_kf, cam, cfg, seed_budget=True)
+            seed = tracking._cascade_seed(state, frame, Rl, tl, Rl, tl, *last,
+                                          ref_kf, cam, cfg, seed_budget=True)
             Rl, tl = seed[0].Rcw, seed[0].tcw
             out.append(seed)
         return out
