@@ -111,7 +111,8 @@ def _localize(profile: bool):
 
     def host_sync(x):
         out = read(x)
-        if sys._getframe(1).f_code.co_name == "_cascade_seed":
+        if sys._getframe(1).f_code.co_name in ("_cascade_seed",
+                                                "_fallbacks"):
             branch[-1].append(out)
         return out
 
